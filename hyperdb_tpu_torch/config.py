@@ -1,0 +1,57 @@
+"""Engine configuration for the PyTorch/CUDA port.
+
+Only the knobs this package reads, under the SAME environment-variable
+names as ``hyperdb_tpu/config.py``, so one deployment's settings mean the
+same thing in both packages. The values are read when the module is
+imported; tests change them by monkeypatching ``CONFIG`` attributes.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+
+def _env_int(name: str, default: int):
+    def read() -> int:
+        try:
+            return int(os.environ.get(name, default))
+        except ValueError:
+            return default
+
+    return field(default_factory=read)
+
+
+@dataclass
+class EngineConfig:
+    # Minimum padded row count before dot/cosine scans take the grouped
+    # (group-max + rescore) exact top-k instead of one wide top-k. 0 disables.
+    grouped_topk_min_rows: int = _env_int("HYPERDB_GROUPED_TOPK_MIN_ROWS", 262144)
+    # Master switch of the hand-written stage-1 scan kernels (ops/gmax.py).
+    # 0 disables them: every scan then takes the plain grouped route.
+    pallas_gmax: int = _env_int("HYPERDB_PALLAS_GMAX", 1)
+    # Minimum query-batch height before bf16 dot-form grouped scans route
+    # stage 1 through the gmax kernels. 0 disables the float route.
+    pallas_gmax_f_min_batch: int = _env_int(
+        "HYPERDB_PALLAS_GMAX_F_MIN_BATCH", 512
+    )
+    # Subgroup width of the two-level selection (gmax_f_sub): stage 1 emits
+    # per-SUB-row maxes, selection narrows top-k groups to top-k subgroups,
+    # and stage 3 rescores only (B, k, SUB, d) rows. Must divide 128 and be
+    # at least 8; anything else (0 included) selects single-level gmax_f.
+    pallas_subgroup: int = _env_int("HYPERDB_PALLAS_SUBGROUP", 32)
+    # 1: the kernel writes group AND subgroup maxes; 0: subgroup maxes only,
+    # with the group maxes taken as a max over each run outside the kernel
+    # (bitwise identical — max is exact).
+    pallas_sub_dual: int = _env_int("HYPERDB_PALLAS_SUB_DUAL", 0)
+    # Rank on the host (NumPy) when corpus_rows * batch is at most this many
+    # score cells: below it a device launch costs more than the scan.
+    # 0 disables.
+    host_path_max_cells: int = _env_int("HYPERDB_HOST_PATH_MAX_CELLS", 65536)
+    # Pad query_batch's batch dimension up to the next power of two (pad
+    # rows repeat row 0 and are sliced off the results), so both packages
+    # scan the same batch shapes. 0 disables.
+    batch_bucket: int = _env_int("HYPERDB_BATCH_BUCKET", 1)
+
+
+CONFIG = EngineConfig()

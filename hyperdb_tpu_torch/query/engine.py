@@ -1,0 +1,456 @@
+"""The query engine.
+
+Counterpart of ``hyperdb_tpu/query/engine.py``: filters become host masks,
+then one ranking call runs on the store's device (score + NaN scrub + mask
++ recency + top-k). This slice serves unchunked corpora (one row per
+document), the key-filter override branch and the tiny-corpus host path;
+every other branch raises ``NotImplementedError`` naming its ROADMAP item.
+
+Preserved reference semantics (SURVEY.md §2.4): Q10/Q11 metric naming and
+the brute-force INFO message, Q13 empty-candidate handling, Q16/Q17
+recency over the surviving documents, Q20 soft failures.
+"""
+
+from __future__ import annotations
+
+import time as _time
+
+import numpy as np
+import torch
+
+from hyperdb_tpu_torch.config import CONFIG
+from hyperdb_tpu_torch.core.nested import get_nested_value
+from hyperdb_tpu_torch.core.store import bucket_size
+from hyperdb_tpu_torch.ops.host_ranking import rank_block_host
+from hyperdb_tpu_torch.ops.metrics import METRICS
+from hyperdb_tpu_torch.ops.ranking import _auto_group, rank_top_k
+from hyperdb_tpu_torch.query import filters as _filters
+from hyperdb_tpu_torch.utils import log
+from hyperdb_tpu_torch.utils.devio import fetch
+
+# Query metric -> constructor/ANN metric (reference hyperdb.py:1453-1459).
+METRIC_TO_ANN = {
+    "dot_product": "dot",
+    "cosine_similarity": "cosine",
+    "euclidean_metric": "euclidean",
+    "manhattan_distance": "manhattan",
+    "hamming_distance": "hamming",
+}
+
+
+def _pad_pow2(k: int) -> int:
+    return 1 << max(0, (k - 1)).bit_length() if k > 1 else 1
+
+
+def is_numeric_array(array: np.ndarray) -> bool:
+    return np.issubdtype(array.dtype, np.number) and not np.issubdtype(
+        array.dtype, np.complexfloating
+    )
+
+
+def generate_and_validate_query_vector(db, query_input) -> np.ndarray:
+    """String -> embedding; array-like -> validated (reference
+    hyperdb.py:1197-1216). Returns a 1-D float32 vector."""
+    if (
+        isinstance(query_input, np.ndarray)
+        and query_input.dtype == np.float32
+        and query_input.ndim == 1
+        and query_input.size
+        and (db.dim is None or query_input.shape[0] == db.dim)
+    ):
+        return query_input
+    try:
+        if isinstance(query_input, str):
+            emb = db.embedding_function([query_input])[0]
+            query_vector = np.squeeze(np.asarray(emb, dtype=np.float32))
+            if query_vector.ndim == 2:  # chunked long query: average chunks
+                query_vector = query_vector.mean(axis=0)
+        elif isinstance(query_input, (list, np.ndarray, tuple)):
+            arr = np.array(query_input)
+            if not is_numeric_array(arr):
+                raise ValueError("Numeric array-like query_input expected.")
+            if arr.ndim > 2:
+                raise ValueError("query_input must be a 1D or 2D array.")
+            if arr.ndim == 1:
+                arr = arr[None, :]
+            if db.dim is not None and arr.shape[1] != db.dim:
+                raise ValueError(
+                    f"The dimension of the query_vector ({arr.shape[1]}) must "
+                    f"match the dimension of the vectors in the database ({db.dim})."
+                )
+            query_vector = np.squeeze(arr.astype(np.float32))
+        else:
+            raise ValueError(
+                "query_input must be either a string or a numeric array-like object."
+            )
+        if query_vector.size == 0:
+            raise ValueError("The generated query vector is empty.")
+        return query_vector
+    except Exception as e:
+        print(f"An exception occurred due to invalid input: {e}")
+        raise
+
+
+def handle_timestamps(db, recency_bias, timestamp_key, doc_indices) -> np.ndarray | None:
+    """Recency term over surviving documents (reference hyperdb.py:1310-1346):
+    a dense (num_docs,) f32 array (zeros outside ``doc_indices``), or None
+    when recency_bias == 0."""
+    if recency_bias == 0:
+        return None
+    if timestamp_key is None:
+        timestamp_key = "timestamp"
+    if timestamp_key not in db.metadata_keys:
+        raise ValueError(
+            f"The timestamp_key '{timestamp_key}' must be present in "
+            f"metadata_keys when recency_bias is not 0."
+        )
+    timestamps = [
+        get_nested_value(db.documents[i], [timestamp_key]) for i in doc_indices
+    ]
+    if any(t is None for t in timestamps):
+        raise ValueError(
+            "All timestamps must be populated when recency_bias is not 0 "
+            "or timestamp_key is provided."
+        )
+    t = np.asarray(timestamps, dtype=np.float64)
+    dense = np.zeros(len(db.documents), dtype=np.float32)
+    dense[np.asarray(doc_indices, dtype=np.int64)] = (
+        recency_bias * np.exp(t - t.max())
+    ).astype(np.float32)
+    return dense
+
+
+def _base_mask(num_docs: int, filters) -> np.ndarray:
+    """skip_doc is applied first (reference hyperdb.py:1474-1481)."""
+    mask = np.ones(num_docs, dtype=bool)
+    for name, params in filters or ():
+        if name not in _filters.FILTER_NAMES:
+            raise ValueError(f"Invalid filter name {name}")
+        if name == "skip_doc":
+            mask &= _filters.skip_doc_mask(num_docs, params)
+            break
+    return mask
+
+
+def execute_query(
+    db,
+    query_input,
+    top_k: int = 5,
+    return_similarities: bool = True,
+    filters=None,
+    recency_bias: float = 0,
+    timestamp_key=None,
+    metric: str = "cosine_similarity",
+    ann_percent: int = 5,
+):
+    start_time = _time.perf_counter()
+    num_docs = len(db.documents)
+    if db.vectors is None or len(db.vectors) == 0 or not db.documents:
+        raise Exception("The database is empty. Cannot proceed with the query.")
+    if metric not in METRICS:
+        raise ValueError(
+            f"Invalid metric '{metric}'. Supported: "
+            "'dot_product', 'cosine_similarity', 'euclidean_metric', "
+            "'manhattan_distance', 'jaccard_similarity', "
+            "'pearson_correlation', 'hamming_distance'"
+        )
+
+    query_vector = generate_and_validate_query_vector(db, query_input)
+    if query_vector.ndim != 1:
+        query_vector = query_vector[0]
+
+    use_ann = METRIC_TO_ANN.get(metric) == db.ann_metric
+    if not use_ann:
+        log.info(
+            f"INFO: Metric '{metric}' is not supported by the current ANN "
+            f"index ('{db.ann_metric}'). Bruteforce method used instead."
+        )
+
+    filters = list(filters) if filters is not None else None
+    base_mask = _base_mask(num_docs, filters)
+    mask = base_mask.copy()
+    override = None
+    if filters:
+        mask, override = _filters.apply_filters(db, filters, mask)
+
+    # empty-candidate fallback (Q13)
+    if not mask.any():
+        if filters:
+            log.info(
+                "INFO: Falling back to brute-force search after no results "
+                "from ANN pre-filtering."
+            )
+            mask, override = _filters.apply_filters(db, filters, base_mask.copy())
+        else:
+            log.info("INFO: No document matches your query.")
+            return []
+    if not mask.any():
+        log.info(
+            "INFO: No document matches your query with the brute-force "
+            "method and the current filters."
+        )
+        return []
+
+    surviving = int(mask.sum())
+    if top_k > surviving:
+        log.info(
+            f"Warning: top_k ({top_k}) is greater than the number of filtered "
+            f"documents ({surviving}). Setting top_k to {surviving}."
+        )
+        top_k = surviving
+    if surviving == 1:
+        # reference stdout parity (ranking_algorithm.py:188-190)
+        if override is not None:
+            log.info("Info: Only one document left.")
+        else:
+            src = np.asarray(db.source_indices, dtype=np.int64)
+            if int((src == int(np.flatnonzero(mask)[0])).sum()) == 1:
+                log.info("Info: Only one document left.")
+
+    recency = handle_timestamps(
+        db, recency_bias, timestamp_key, np.flatnonzero(mask)
+    )
+
+    with db.stats.phase("query.rank"):
+        doc_ids, vals = _rank_block(
+            db, query_vector[None, :], mask, override, recency, metric, top_k
+        )
+    doc_ids, scores_out = doc_ids[0], vals[0]
+
+    db.stats.record("query.execute", _time.perf_counter() - start_time)
+    results = []
+    ann_recency_path = use_ann and recency_bias != 0
+    for doc_id, score in zip(doc_ids, scores_out):
+        document = db.documents[doc_id]
+        if not return_similarities:
+            results.append(document)
+        elif ann_recency_path:
+            results.append((document, float(score)))  # Q4 shape parity
+        else:
+            results.append((document, float(score), int(doc_id)))
+    return results
+
+
+def execute_query_batch(
+    db,
+    query_inputs,
+    top_k: int = 5,
+    return_similarities: bool = True,
+    filters=None,
+    recency_bias: float = 0,
+    timestamp_key=None,
+    metric: str = "cosine_similarity",
+    ann_percent: int = 5,
+    n_valid: int | None = None,
+):
+    """Batched multi-query search: the filter masks are computed once and the
+    whole (B, d) block rides one ranking call. Per-query results have the
+    shape of :func:`execute_query`'s."""
+    doc_ids, scores_out = execute_query_batch_arrays(
+        db,
+        query_inputs,
+        top_k=top_k,
+        filters=filters,
+        recency_bias=recency_bias,
+        timestamp_key=timestamp_key,
+        metric=metric,
+        ann_percent=ann_percent,
+        n_valid=n_valid,
+    )
+    results = []
+    for b in range(doc_ids.shape[0]):
+        row = []
+        for doc_id, score in zip(doc_ids[b], scores_out[b]):
+            document = db.documents[int(doc_id)]
+            if return_similarities:
+                row.append((document, float(score), int(doc_id)))
+            else:
+                row.append(document)
+        results.append(row)
+    return results
+
+
+def execute_query_batch_arrays(
+    db,
+    query_inputs,
+    top_k: int = 5,
+    filters=None,
+    recency_bias: float = 0,
+    timestamp_key=None,
+    metric: str = "cosine_similarity",
+    ann_percent: int = 5,
+    n_valid: int | None = None,
+):
+    """Array-level core of :func:`execute_query_batch`.
+
+    Returns ``(doc_ids, scores)`` as ``(B, k)`` int64 / float32 NumPy arrays
+    with ``k = min(top_k, surviving docs)`` (``k == 0`` when filters
+    eliminate everything). float16 query blocks stay float16 up to the
+    ranking call. ``n_valid`` limits how many leading rows are real queries.
+    """
+    num_docs = len(db.documents)
+    start_time = _time.perf_counter()
+    if db.vectors is None or len(db.vectors) == 0 or not db.documents:
+        raise Exception("The database is empty. Cannot proceed with the query.")
+    if metric not in METRICS:
+        raise ValueError(f"Invalid metric '{metric}'.")
+
+    if isinstance(query_inputs, np.ndarray) and query_inputs.ndim == 2:
+        q_block = (
+            query_inputs
+            if query_inputs.dtype == np.float16
+            else query_inputs.astype(np.float32)
+        )
+    else:
+        q_block = np.stack(
+            [generate_and_validate_query_vector(db, q) for q in query_inputs]
+        ).astype(np.float32)
+    if db.dim is not None and q_block.shape[1] != db.dim:
+        raise ValueError(
+            f"The dimension of the query vectors ({q_block.shape[1]}) must "
+            f"match the dimension of the vectors in the database ({db.dim})."
+        )
+
+    # Batch-dim bucketing (HYPERDB_BATCH_BUCKET): pad B up to the next power
+    # of two with copies of row 0 and slice the pad rows off the results, so
+    # both packages scan the same batch shapes. Host-path-sized corpora skip
+    # it (padding could push them onto the device path).
+    b_real = q_block.shape[0]
+    if CONFIG.batch_bucket and db._store.num_rows * b_real > CONFIG.host_path_max_cells:
+        b_pad = _pad_pow2(b_real)
+        if b_pad != b_real:
+            q_block = np.concatenate(
+                [q_block, np.repeat(q_block[:1], b_pad - b_real, axis=0)]
+            )
+
+    filters = list(filters) if filters is not None else None
+    mask = _base_mask(num_docs, filters)
+    override = None
+    if filters:
+        mask, override = _filters.apply_filters(db, filters, mask)
+    n_out = b_real if n_valid is None else min(int(n_valid), b_real)
+    if not mask.any():
+        return (
+            np.zeros((n_out, 0), dtype=np.int64),
+            np.zeros((n_out, 0), dtype=np.float32),
+        )
+
+    k = min(top_k, int(mask.sum()))
+    recency = handle_timestamps(
+        db, recency_bias, timestamp_key, np.flatnonzero(mask)
+    )
+    doc_ids, scores_out = _rank_block(db, q_block, mask, override, recency, metric, k)
+
+    db.stats.record("query.batch_arrays", _time.perf_counter() - start_time)
+    db.stats.bump("query.batch_queries", n_out)
+    return (
+        np.asarray(doc_ids[:n_out], dtype=np.int64),
+        np.asarray(scores_out[:n_out], dtype=np.float32),
+    )
+
+
+def _rank_block(db, q_block, mask, override, recency, metric, top_k):
+    """Run the ranking call; returns ((B, k) doc_ids, (B, k) scores)."""
+    num_docs = len(db.documents)
+    store = db._store
+    device = store.device
+
+    # Tiny-corpus host fast path (ops/host_ranking): below this cell count a
+    # device launch and readback cost more than the scan.
+    cells = store.num_rows * max(1, int(q_block.shape[0]))
+    if 0 < cells <= CONFIG.host_path_max_cells:
+        if override is not None:
+            vals, idx = rank_block_host(
+                q_block, override, top_k, metric, doc_mask=mask, recency=recency
+            )
+        elif num_docs == store.num_rows:
+            hv = store.host_view()
+            vals, idx = rank_block_host(
+                q_block, hv["rows"], top_k, metric,
+                doc_mask=mask, recency=recency, rows_norm=hv["rows_norm"],
+            )
+        else:
+            hv = store.host_view()
+            vals, idx = rank_block_host(
+                q_block, hv["rows"], top_k, metric,
+                doc_mask=mask, recency=recency,
+                row_docs=np.asarray(db.source_indices, dtype=np.int64),
+                num_docs=num_docs, rows_norm=hv["rows_norm"],
+            )
+        return idx, vals
+
+    q = np.ascontiguousarray(q_block)
+    if q.dtype != np.float16:
+        q = q.astype(np.float32, copy=False)
+    q = torch.from_numpy(q).to(device)
+    k_pad = min(_pad_pow2(top_k), bucket_size(num_docs))
+
+    if override is not None:
+        # Key-filter path: per-document override vectors (rows == docs).
+        d_pad = bucket_size(num_docs)
+        padded = np.zeros((d_pad, override.shape[1]), dtype=np.float32)
+        padded[:num_docs] = override
+        mask_pad = np.zeros(d_pad, dtype=bool)
+        mask_pad[:num_docs] = mask
+        rec_pad = None
+        if recency is not None:
+            rec_pad = np.zeros(d_pad, dtype=np.float32)
+            rec_pad[:num_docs] = recency
+            rec_pad = torch.from_numpy(rec_pad).to(device)
+        vals, idx = rank_top_k(
+            q,
+            torch.from_numpy(padded).to(device),
+            k=k_pad,
+            metric=metric,
+            row_mask=torch.from_numpy(mask_pad).to(device),
+            recency=rec_pad,
+        )
+    elif num_docs == store.num_rows:
+        # Unchunked corpus: rows ARE docs — rank rows directly.
+        dv = store.device_view(db.source_indices)
+        n_pad = dv["n_pad"]
+        if mask.all():
+            row_mask_dev = dv["row_valid"]  # no per-query mask upload
+        else:
+            row_mask = np.zeros(n_pad, dtype=bool)
+            row_mask[:num_docs] = mask
+            row_mask_dev = torch.from_numpy(row_mask).to(device)
+        rec_pad = None
+        if recency is not None:
+            rec_host = np.zeros(n_pad, dtype=np.float32)
+            rec_host[:num_docs] = recency
+            rec_pad = torch.from_numpy(rec_host).to(device)
+        prenorm = metric == "cosine_similarity"
+        if metric in ("euclidean_metric", "hamming_distance", "jaccard_similarity",
+                      "pearson_correlation") and _grouped_ok(n_pad, q.shape[0]):
+            raise NotImplementedError(
+                f"grouped {metric} over a large corpus is not ported yet: "
+                "ROADMAP.md queue 1, item 6"
+            )
+        vals, idx = rank_top_k(
+            q,
+            dv["rows_norm"] if prenorm else dv["rows"],
+            k=min(k_pad, n_pad),
+            metric=metric,
+            row_mask=row_mask_dev,
+            recency=rec_pad,
+            prenormalized=prenorm,
+        )
+    else:
+        raise NotImplementedError(
+            "chunked corpora (several rows per document) are not ported yet: "
+            "ROADMAP.md queue 1, item 3"
+        )
+
+    idx_h, vals_h = fetch(idx, vals)
+    return idx_h[:, :top_k], vals_h[:, :top_k]
+
+
+def _grouped_ok(n_pad: int, batch: int) -> bool:
+    """Corpus large enough (and group-divisible) for the grouped routes."""
+    if CONFIG.grouped_topk_min_rows <= 0 or n_pad < CONFIG.grouped_topk_min_rows:
+        return False
+    group = _auto_group(batch)
+    while group >= 32 and n_pad % group:
+        group //= 2
+    return group >= 32 and n_pad % group == 0

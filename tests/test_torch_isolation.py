@@ -1,0 +1,103 @@
+"""The port stands alone and runs on the card unless asked otherwise.
+
+- No file of ``hyperdb_tpu_torch/`` and not ``chip_smoke.py`` imports
+  ``jax``, ``flax``, ``hyperdb_tpu`` or ``hyperdb`` (AST scan).
+- ``HyperDB(...)`` without ``device=`` raises where CUDA is missing.
+- The kernel wrappers take their plain versions for CPU tensors only: any
+  other tensor goes to the kernel, and a kernel library that cannot be
+  built or loaded raises, with no fallback.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import hyperdb_tpu_torch
+from hyperdb_tpu_torch.core.db import resolve_device
+from hyperdb_tpu_torch.ops import cuda_build
+from hyperdb_tpu_torch.ops import gmax as G
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hyperdb_tpu", "hyperdb")
+
+
+def _port_files():
+    files = sorted((ROOT / "hyperdb_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    assert path.exists(), path
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_package_import_disables_tf32():
+    assert hyperdb_tpu_torch.HyperDB is not None
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hyperdb_tpu_torch.HyperDB(["a"], np.ones((1, 4), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.fixture
+def no_kernel_library(monkeypatch, tmp_path):
+    """Point the loader at a build directory with no library and a toolkit
+    with no ``nvcc``: every kernel load must fail."""
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_LIBS", {})
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+
+def test_wrappers_raise_without_kernel(no_kernel_library):
+    q = torch.empty((128, 128), dtype=torch.bfloat16, device="meta")
+    v = torch.empty((1024, 128), dtype=torch.bfloat16, device="meta")
+    extra = torch.empty((1024,), dtype=torch.float32, device="meta")
+    before = dict(G.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        G.gmax_f(q, v, extra)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        G.gmax_f_sub(q, v, extra)
+    assert G.LAUNCHES == before
+    # the same shapes on CPU tensors take the plain versions
+    cpu = [torch.zeros(t.shape, dtype=t.dtype) for t in (q, v, extra)]
+    assert G.gmax_f(*cpu).shape == (128, 8)
+    assert G.LAUNCHES == before
+
+
+def test_missing_library_file_raises(no_kernel_library, monkeypatch, tmp_path):
+    missing = tmp_path / "libgmax-missing.so"
+    monkeypatch.setattr(cuda_build, "build", lambda names=None: {"gmax": missing})
+    with pytest.raises(OSError):
+        cuda_build.load("gmax")
+    assert "gmax" not in cuda_build._LIBS
+
+
+def test_build_flags_and_sources():
+    assert cuda_build.sources() == ["gmax"]
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    p = cuda_build.library_path("gmax")
+    assert p.parent == cuda_build.BUILD_DIR and p.name.startswith("libgmax-")
