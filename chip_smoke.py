@@ -2,12 +2,12 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, one line each on standard output:
+Phases, one or a few lines each on standard output:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the torch
    and nvcc versions, and the time the kernels took to build;
-2. every kernel of the path (``gmax_f_sub`` single and dual, ``gmax_f``)
-   against its plain PyTorch version at the main path's shapes: a 2^20-row,
+2. the float kernels (``gmax_f_sub`` single and dual, ``gmax_f``) against
+   their plain PyTorch versions at the main path's shapes: a 2^20-row,
    d = 384 bf16 plane, b = 512, with masked rows, recency, a NaN row, a
    NaN group and duplicated rows. Tolerance 1e-5 absolute on unit-norm operands (the
    kernel and the plain f32 matmul sum the same exact bf16 products in
@@ -25,7 +25,24 @@ Phases, one line each on standard output:
    each batch is timed on the host clock and split into the device time
    of its stages;
 5. ``query`` (b = 1) and ``query_batch`` at b = 64 on the plain grouped
-   route, with the same check.
+   route, with the same check;
+6. path B, the grouped metrics on the same DB at b = 512: euclidean,
+   hamming and pearson must launch ``gmax_f_sub`` and jaccard
+   ``gmax_jaccard``; ids tie-aware equal to a plain reference over the same
+   planes with the same score formula. With recency the three epilogue
+   metrics must launch nothing (the plain grouped form); pearson is a dot
+   scan, whose kernel takes recency. ``gmax_jaccard`` is held EQUAL to its
+   plain version on the store's 0/1 plane (masked group, masked rows, empty
+   rows, an empty query) and timed like the float kernels;
+7. path A, int8 planes: ``device_precision="int8-pure"`` at b = 1024 and
+   b = 4096 (``gmax_int8`` launched once per batch; ids tie-aware equal to
+   a plain reference over the same int8 planes) and at b = 64 (the plain
+   grouped form, no launch); ``"int8"`` at b = 1024 (ids identical to the
+   same route with the plain stage 1; recall@10 against the exact bf16
+   reference at least 0.99). ``gmax_int8`` is held EQUAL to its plain
+   version at b = 1024 on the store's plane (masked group, masked rows,
+   recency, zero-scale rows) and timed beside ``torch._int_mm`` + rescale +
+   ``amax``.
 
 Then a JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
@@ -50,8 +67,23 @@ DIM = 384
 TOP_K = 10
 SUB = 32
 ATOL = 1e-5  # unit-norm bf16 operands, f32 sums in different orders
+# Tolerances of the tie-aware id checks of paths A and B. Hamming, jaccard
+# and int8 scores are exact integer counts through the same IEEE operations
+# in the route and in the reference (0 expected); euclidean scores (~0.035)
+# carry the f32 sum order of q.v through d^2 ~ 768, under 1e-8.
+METRIC_ATOL = {
+    "euclidean_metric": 1e-7,
+    "hamming_distance": 1e-7,
+    "jaccard_similarity": 1e-7,
+    "pearson_correlation": ATOL,
+}
+INT8_ATOL = 1e-7
+RECENCY_BIAS = 0.05
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+GMAX_SOURCE = "hyperdb_tpu_torch/csrc/gmax.cu"
+NEG_INF = float("-inf")
 
 
 def log(msg: str) -> None:
@@ -102,13 +134,19 @@ def wall_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def scan_bound_ms(b: int, n: int, d: int, out_cols: int) -> tuple[float, str]:
-    """Least time for one stage-1 scan: the larger of its operations over the
-    bf16 peak and its bytes (q, v, extra read once, maxes written once) over
-    the memory rate."""
+def scan_bound_ms(b: int, n: int, d: int, out_cols: int, kind: str = "bf16"):
+    """Least time for one stage-1 scan: the larger of its operations over
+    the tensor-core peak of its operand type and its bytes (every input read
+    once, the maxes written once) over the memory rate. ``kind`` is "bf16"
+    (q, v, extra), "int8" (one-byte q and v, plus q_scale, v_scales, extra)
+    or "jaccard" (bf16 q and v, plus q_sum, aux, extra)."""
     flops = 2.0 * b * n * d
-    nbytes = 2.0 * (b * d + n * d) + 4.0 * n + 4.0 * b * out_cols
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    width = 1.0 if kind == "int8" else 2.0
+    nbytes = width * (b * d + n * d) + 4.0 * n + 4.0 * b * out_cols
+    if kind != "bf16":
+        nbytes += 4.0 * (b + n)
+    peak = PEAK_INT8_OPS if kind == "int8" else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -125,6 +163,26 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got[fin] - want[fin]).abs().max())
 
 
+def kernel_entry(name, replaces, err, kern, plain, lib, bound, reps=20):
+    """Time one kernel beside its plain version and its library call, and
+    make its entry of the ``kernels`` line. ``lib`` may be None."""
+    ms = cuda_ms(kern, reps=reps)
+    plain_ms = cuda_ms(plain, reps=5, warmup=1)
+    lib_ms = None if lib is None else cuda_ms(lib, reps=5, warmup=1)
+    bound_ms, bound_by = bound
+    lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
+    log(
+        f"kernel {name}: max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_txt} bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"bound/ms={bound_ms / ms:.3f}"
+    )
+    return {
+        "name": name, "route": "cuda", "source": GMAX_SOURCE, "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+    }
+
+
 # ---------------------------------------------------------------- data
 
 
@@ -135,63 +193,107 @@ def make_corpus(seed: int) -> np.ndarray:
     return v
 
 
-def make_queries(seed: int, b: int, corpus: np.ndarray) -> np.ndarray:
+def make_documents() -> list:
+    """One small dict per document with a timestamp in [0, 1) for the
+    recency queries."""
+    return [{"ts": (i % 1000) / 1000.0} for i in range(N_DOCS)]
+
+
+def make_queries(seed: int, b: int, corpus: np.ndarray, plant: bool = True) -> np.ndarray:
     q = np.random.default_rng(seed).standard_normal((b, DIM), dtype=np.float32)
-    q[0] = corpus[4].astype(np.float32)
+    if plant:
+        q[0] = corpus[4].astype(np.float32)
     return q
 
 
-def reference_top_k(plane: torch.Tensor, n: int, q: np.ndarray, k: int):
-    """Exact cosine top-k over the bf16 plane: the query normalized in f32
-    and rounded to bf16, f32 matmul over the upcast plane, padding rows at
-    -inf, then a stable descending sort (ties to the lower id)."""
-    qt = torch.from_numpy(q).cuda()
-    norm = torch.sqrt((qt * qt).sum(-1, keepdim=True))
-    qn = (qt / torch.where(norm == 0, torch.ones_like(norm), norm)).bfloat16().float()
-    v32 = plane.float()
-    vals, ids = [], []
-    for a in range(0, qn.shape[0], 64):
-        s = qn[a : a + 64] @ v32.T
-        s[:, n:] = float("-inf")
-        s = s.masked_fill(torch.isnan(s), float("-inf"))
-        sv, si = torch.sort(s, dim=-1, descending=True, stable=True)
-        vals.append(sv[:, :k])
-        ids.append(si[:, :k])
-    return torch.cat(vals), torch.cat(ids), qn
+def recency_vector(n_pad: int) -> torch.Tensor:
+    """The engine's recency term for ``make_documents`` (all documents
+    surviving): bias * exp(t - max t), f32, zero on padding rows."""
+    t = (np.arange(N_DOCS) % 1000) / 1000.0
+    rec = np.zeros(n_pad, dtype=np.float32)
+    rec[:N_DOCS] = (RECENCY_BIAS * np.exp(t - t.max())).astype(np.float32)
+    return torch.from_numpy(rec).cuda()
 
 
-def check_ids(name, got_ids, got_vals, plane, n, q, k):
+# ---------------------------------------------------------------- references
+
+
+class Reference:
+    """Exact top-k of ``f(qq . rows, aux, qconst)`` (+ recency) over one
+    plane, by a chunked f32 matmul over the upcast plane and a stable
+    descending sort (ties to the lower id); padding rows are -inf.
+
+    ``qq`` is the (B, d) operand block exactly as the route multiplies it
+    (already rounded to the plane's dtype, or int8); ``f(inter, aux,
+    qconst)`` is the route's score formula with ``aux`` broadcast over rows
+    and ``qconst`` a (B, 1) per-query column."""
+
+    def __init__(self, qq, rows, n, k, f=None, aux=None, qconst=None, rec=None):
+        self.qq = qq.float()
+        self.rows, self.n, self.f, self.aux, self.rec = rows, n, f, aux, rec
+        self.qconst = qconst
+        rows32 = rows.float()
+        vals, ids = [], []
+        for a in range(0, self.qq.shape[0], 64):
+            qc = None if qconst is None else qconst[a : a + 64]
+            s = self._score(self.qq[a : a + 64] @ rows32.T, None if aux is None else aux[None, :], qc)
+            if rec is not None:
+                s = s + rec[None, :]
+            s[:, n:] = NEG_INF
+            sv, si = torch.sort(s, dim=-1, descending=True, stable=True)
+            vals.append(sv[:, :k])
+            ids.append(si[:, :k])
+        self.vals, self.ids = torch.cat(vals), torch.cat(ids)
+
+    def _score(self, inter, aux, qconst):
+        s = inter if self.f is None else self.f(inter, aux, qconst)
+        return s.masked_fill(torch.isnan(s), NEG_INF)
+
+    def exact(self, ids: torch.Tensor, queries=None) -> torch.Tensor:
+        """Exact scores of rows ``ids`` (B, k) — or (m,) rows for the
+        queries listed in ``queries`` (m,)."""
+        qq = self.qq if queries is None else self.qq[queries]
+        qc = self.qconst
+        if qc is not None and queries is not None:
+            qc = qc[queries]
+        rows = self.rows[ids].float()
+        if ids.ndim == 2:
+            inter = torch.einsum("bd,bkd->bk", qq, rows)
+        else:
+            inter = (qq * rows).sum(-1)
+            qc = None if qc is None else qc[:, 0]
+        s = self._score(inter, None if self.aux is None else self.aux[ids], qc)
+        return s if self.rec is None else s + self.rec[ids]
+
+
+def check_top_k(name, got_ids, got_vals, ref: Reference, atol: float):
     """Tie-aware: at every rank, the returned id's exact score and the
-    returned score lie within ATOL of the reference's score at that rank;
-    where an id differs from the reference's, the two rows' scores lie
-    within ATOL of each other; no query returns an id twice."""
-    ref_vals, ref_ids, qn = reference_top_k(plane, n, q, k)
+    returned score lie within ``atol`` of the reference's score at that
+    rank; where an id differs from the reference's, the two rows' scores lie
+    within ``atol`` of each other; no query returns an id twice."""
     gi = torch.from_numpy(np.ascontiguousarray(got_ids)).cuda()
     gv = torch.from_numpy(np.ascontiguousarray(got_vals)).cuda()
-    if gi.shape != ref_ids.shape or int(gi.max()) >= n or int(gi.min()) < 0:
+    if gi.shape != ref.ids.shape or int(gi.max()) >= ref.n or int(gi.min()) < 0:
         raise AssertionError(f"{name}: ids out of range or of the wrong shape")
     if not torch.isfinite(gv).all():
         raise AssertionError(f"{name}: non-finite scores")
-    rows = plane[gi].float()  # (B, k, d)
-    exact = torch.einsum("bd,bkd->bk", qn, rows)
-    err_exact = float((exact - ref_vals).abs().max())
-    err_score = float((gv - ref_vals).abs().max())
-    swapped = gi != ref_ids
+    exact = ref.exact(gi)
+    err_exact = float((exact - ref.vals).abs().max())
+    err_score = float((gv - ref.vals).abs().max())
+    swapped = gi != ref.ids
     swaps = int(swapped.sum())
-    if err_exact > ATOL or err_score > ATOL:
+    if err_exact > atol or err_score > atol:
         raise AssertionError(
             f"{name}: scores off the reference (ids {err_exact:.3g}, scores "
-            f"{err_score:.3g} > {ATOL})"
+            f"{err_score:.3g} > {atol})"
         )
     if swaps:
-        ref_rows = plane[ref_ids[swapped]].float()  # (swaps, d)
-        qs = qn[swapped.nonzero()[:, 0]]
-        ref_exact = (qs * ref_rows).sum(-1)
+        ref_exact = ref.exact(ref.ids[swapped], queries=swapped.nonzero()[:, 0])
         err_swap = float((exact[swapped] - ref_exact).abs().max())
-        if err_swap > ATOL:
+        if err_swap > atol:
             raise AssertionError(
                 f"{name}: an id differs from the reference's at a score gap "
-                f"of {err_swap:.3g} > {ATOL}"
+                f"of {err_swap:.3g} > {atol}"
             )
     uniq = torch.sort(gi, dim=1).values
     if (uniq[:, 1:] == uniq[:, :-1]).any():
@@ -199,11 +301,79 @@ def check_ids(name, got_ids, got_vals, plane, n, q, k):
     return swaps, err_score
 
 
+def cosine_reference(plane: torch.Tensor, n: int, q: np.ndarray, k: int) -> Reference:
+    """Exact cosine top-k over the bf16 plane: the query normalized in f32
+    and rounded to bf16, as the route multiplies it."""
+    qt = torch.from_numpy(q).cuda()
+    norm = torch.sqrt((qt * qt).sum(-1, keepdim=True))
+    qn = (qt / torch.where(norm == 0, torch.ones_like(norm), norm)).bfloat16()
+    return Reference(qn, plane, n, k)
+
+
+def check_ids(name, got_ids, got_vals, plane, n, q, k):
+    return check_top_k(name, got_ids, got_vals, cosine_reference(plane, n, q, k), ATOL)
+
+
+def metric_reference(db, metric: str, q: np.ndarray, k: int, rec=None) -> Reference:
+    """The plain reference of one grouped metric: the same plane, the same
+    operand rounding and the same score formula as the route."""
+    store = db._store
+    dv = store.device_view(db.source_indices)
+    q32 = torch.from_numpy(q).cuda()
+    if metric == "pearson_correlation":
+        from hyperdb_tpu_torch.ops.metrics import pearson_center_normalize
+
+        plane = store.pearson_view(db.source_indices)["rows_pearson"]
+        qq = torch.from_numpy(pearson_center_normalize(q.astype(np.float32))).cuda()
+        return Reference(qq.to(plane.dtype), plane, N_DOCS, k, rec=rec)
+    if metric == "euclidean_metric":
+        rows, aux = dv["rows"], dv["row_sq"]
+        qconst = (q32 * q32).sum(-1, keepdim=True)
+
+        def f(inter, a, qsq):
+            return 1.0 / (1.0 + torch.sqrt(torch.clamp(a - 2.0 * inter + qsq, min=0.0)))
+    else:
+        bv = store.binary_view(db.source_indices)
+        rows, aux = bv["rows_bin"], bv["row_bin_sum"]
+        q32 = (q32 > 0).float()
+        qconst = q32.sum(-1, keepdim=True)
+        if metric == "hamming_distance":
+            def f(inter, a, qsum):
+                return float(DIM) - (a + qsum - 2.0 * inter)
+        else:
+            def f(inter, a, qsum):
+                return inter / (a + qsum - inter)
+    return Reference(q32.to(rows.dtype), rows, N_DOCS, k, f=f, aux=aux, qconst=qconst, rec=rec)
+
+
+def quantize_queries(q: np.ndarray):
+    """The int8 cosine route's query block, in NumPy on the host: normalized
+    in f32 as the engine does, quantized per row with IEEE division and
+    round half to even."""
+    qn = np.linalg.norm(q, axis=1, keepdims=True)
+    qn[qn == 0] = 1.0
+    x = (q / qn).astype(np.float32)
+    scales = (np.max(np.abs(x), axis=1) / np.float32(127.0)).astype(np.float32)
+    safe = np.where(scales == 0, np.float32(1.0), scales)
+    q_i8 = np.clip(np.rint(x / safe[:, None]), -127, 127).astype(np.int8)
+    return torch.from_numpy(q_i8).cuda(), torch.from_numpy(scales).cuda()
+
+
+def int8_reference(dv, q: np.ndarray, k: int) -> Reference:
+    """Exact top-k of the rescaled int8 scores over the store's unit-norm
+    int8 plane (the plain ``int8_scores`` formula, chunked)."""
+    q_i8, q_scale = quantize_queries(q)
+    return Reference(
+        q_i8, dv["rowsn_q"], N_DOCS, k, f=lambda inter, a, qs: inter * (qs * a),
+        aux=dv["rown_scales"], qconst=q_scale[:, None],
+    )
+
+
 # ---------------------------------------------------------------- phases
 
 
 def phase_kernels(plane: torch.Tensor, n: int, seed: int):
-    """Every kernel against its plain version at the main path's shapes."""
+    """The float kernels against their plain versions at the main path's shapes."""
     from hyperdb_tpu_torch.ops import gmax as G
 
     n_pad = plane.shape[0]
@@ -222,7 +392,6 @@ def phase_kernels(plane: torch.Tensor, n: int, seed: int):
     q = (q / q.norm(dim=1, keepdim=True)).bfloat16()
     b = q.shape[0]
 
-    results = {}
     gm, sm = G.gmax_f_sub(q, v, extra, sub=SUB, dual=False)
     gm_d, sm_d = G.gmax_f_sub(q, v, extra, sub=SUB, dual=True)
     gm_f = G.gmax_f(q, v, extra)
@@ -242,46 +411,26 @@ def phase_kernels(plane: torch.Tensor, n: int, seed: int):
         s = torch.mm(q, v.T, out_dtype=torch.float32)
         return s.view(b, n_pad // width, width).amax(-1)
 
-    timings = {
-        "gmax_f_sub": (
+    log(f"float kernels at b={b} n={n_pad} d={DIM} (tol {ATOL}):")
+    results = {
+        "gmax_f_sub": kernel_entry(
+            "gmax_f_sub", "hyperdb_tpu/ops/pallas_gmax.py:265", err_sub,
             lambda: G.gmax_f_sub(q, v, extra, sub=SUB, dual=False),
             lambda: G.gmax_f_sub_plain(q, v, extra, sub=SUB),
-            lambda: library(SUB),
-            n_pad // SUB,
-            err_sub,
-            "hyperdb_tpu/ops/pallas_gmax.py:265",
+            lambda: library(SUB), scan_bound_ms(b, n_pad, DIM, n_pad // SUB),
         ),
-        "gmax_f": (
-            lambda: G.gmax_f(q, v, extra),
-            lambda: G.gmax_f_plain(q, v, extra),
-            lambda: library(G.GROUP),
-            n_pad // G.GROUP,
-            err_f,
-            "hyperdb_tpu/ops/pallas_gmax.py:217",
+        "gmax_f": kernel_entry(
+            "gmax_f", "hyperdb_tpu/ops/pallas_gmax.py:217", err_f,
+            lambda: G.gmax_f(q, v, extra), lambda: G.gmax_f_plain(q, v, extra),
+            lambda: library(G.GROUP), scan_bound_ms(b, n_pad, DIM, n_pad // G.GROUP),
         ),
     }
-    for name, (kern, plain, lib, cols, err, replaces) in timings.items():
-        ms = cuda_ms(kern, reps=20)
-        plain_ms = cuda_ms(plain, reps=10, warmup=1)
-        lib_ms = cuda_ms(lib, reps=10, warmup=1)
-        bound, bound_by = scan_bound_ms(b, n_pad, DIM, cols)
-        results[name] = {
-            "name": name, "route": "cuda", "source": "hyperdb_tpu_torch/csrc/gmax.cu",
-            "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lib_ms,
-        }
-        log(
-            f"kernel {name}: b={b} n={n_pad} d={DIM} max_abs_err={err:.3g} (tol {ATOL}) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={bound:.4f} ({bound_by}) bound/ms={bound / ms:.3f}"
-        )
     dual_ms = cuda_ms(lambda: G.gmax_f_sub(q, v, extra, sub=SUB, dual=True), reps=20)
     log(f"kernel gmax_f_sub dual: max_abs_err={err_dual:.3g} ms={dual_ms:.4f}")
 
     # the main path's large batch: kernel time beside its bound
     qb = q.repeat(32, 1)
-    ms_big = cuda_ms(lambda: G.gmax_f_sub(qb, v, extra, sub=SUB, dual=False), reps=10)
+    ms_big = cuda_ms(lambda: G.gmax_f_sub(qb, v, extra, sub=SUB, dual=False), reps=5)
     bound, bound_by = scan_bound_ms(qb.shape[0], n_pad, DIM, n_pad // SUB)
     log(
         f"kernel gmax_f_sub: b={qb.shape[0]} ms={ms_big:.4f} bound_ms={bound:.4f} "
@@ -292,15 +441,145 @@ def phase_kernels(plane: torch.Tensor, n: int, seed: int):
     return results
 
 
-def run_batch(db, q, label, card):
-    """One query_batch_arrays at the batch of ``q``, checked and timed."""
-    ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric="cosine_similarity")
-    reps = 5 if q.shape[0] <= 1024 else 3
-    ms = wall_ms(
-        lambda: db.query_batch_arrays(q, top_k=TOP_K, metric="cosine_similarity"), reps
+def kernel_masks(n_pad: int, n: int, seed: int, recency: bool):
+    """extra for the new kernels' checks: ~10% of the rows masked at random,
+    one whole group masked, padding masked, and recency where asked."""
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    rng = np.random.default_rng(seed)
+    mask = torch.from_numpy(rng.random(n_pad) < 0.9).cuda()
+    mask[n:] = False
+    mask[128:256] = False  # one whole group masked
+    rec = None
+    if recency:
+        rec = torch.from_numpy((rng.random(n_pad) * 0.05).astype(np.float32)).cuda()
+    return G.make_extra(n_pad, mask, rec, device="cuda")
+
+
+def phase_kernel_jaccard(rows_bin: torch.Tensor, bin_sum: torch.Tensor, seed: int):
+    """``gmax_jaccard`` against its plain version at b = 512 on the store's
+    0/1 plane, with empty rows (one alone, one whole group) and an empty
+    query (0/0 -> -inf); the two must be equal."""
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    n_pad = rows_bin.shape[0]
+    b = 512
+    v = rows_bin.clone()
+    aux = bin_sum.clone()
+    for rows in (slice(5, 6), slice(640, 768)):
+        v[rows] = 0
+        aux[rows] = 0
+    extra = kernel_masks(n_pad, N_DOCS, seed + 11, recency=False)
+    q = torch.from_numpy(
+        np.random.default_rng(seed + 12).standard_normal((b, DIM), dtype=np.float32)
+    ).cuda()
+    q32 = (q > 0).float()
+    q32[3] = 0  # an empty query
+    qq, q_sum = q32.bfloat16(), q32.sum(-1, keepdim=True)
+    got = G.gmax_jaccard(qq, v, q_sum, aux, extra)
+    torch.cuda.synchronize()
+    want = G.gmax_jaccard_plain(qq, v, q_sum, aux, extra)
+    err = max_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"gmax_jaccard differs from its plain version (max abs {err:.3g})")
+    if not (torch.isneginf(got[:, 1]).all() and torch.isneginf(got[3, 5]) and got[0, 5] == 0):
+        raise AssertionError("gmax_jaccard: masked group / empty rows / empty query are off")
+
+    def library():
+        inter = torch.mm(qq, v.T, out_dtype=torch.float32)
+        s = inter / (q_sum + aux[None, :] - inter)
+        s = s.masked_fill_(torch.isnan(s), NEG_INF) + extra
+        return s.view(b, n_pad // G.GROUP, G.GROUP).amax(-1)
+
+    log(f"jaccard kernel at b={b} n={n_pad} d={DIM} (must equal its plain version):")
+    entry = kernel_entry(
+        "gmax_jaccard", "hyperdb_tpu/ops/pallas_gmax.py:414", err,
+        lambda: G.gmax_jaccard(qq, v, q_sum, aux, extra),
+        lambda: G.gmax_jaccard_plain(qq, v, q_sum, aux, extra),
+        library, scan_bound_ms(b, n_pad, DIM, n_pad // G.GROUP, "jaccard"),
     )
+    del v, aux
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_kernel_int8(v_i8: torch.Tensor, v_scales: torch.Tensor, seed: int):
+    """``gmax_int8`` against its plain version at b = 1024 on the store's
+    unit-norm int8 plane, with masks, recency, zero-scale rows (one alone,
+    one whole group) and a zero-scale query; the two must be equal."""
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    n_pad = v_i8.shape[0]
+    b = 1024
+    v = v_i8.clone()
+    vs = v_scales.clone()
+    for rows in (slice(5, 6), slice(640, 768)):
+        v[rows] = 0
+        vs[rows] = 0
+    extra = kernel_masks(n_pad, N_DOCS, seed + 21, recency=True)
+    q = np.random.default_rng(seed + 22).standard_normal((b, DIM), dtype=np.float32)
+    q[3] = 0
+    q_i8, q_scale = quantize_queries(q)
+    got = G.gmax_int8(q_i8, q_scale, v, vs, extra)
+    torch.cuda.synchronize()
+    want = G.gmax_int8_plain(q_i8, q_scale, v, vs, extra)
+    err = max_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"gmax_int8 differs from its plain version (max abs {err:.3g})")
+    if not (torch.isneginf(got[:, 1]).all() and torch.equal(got[:, 5], got[3:4, 5].expand(b))):
+        raise AssertionError("gmax_int8: masked group / zero-scale rows are off")
+
+    lib = None
+    if hasattr(torch, "_int_mm"):
+        def lib():
+            s = torch._int_mm(q_i8, v.T).float() * (q_scale[:, None] * vs[None, :]) + extra
+            return s.view(b, n_pad // G.GROUP, G.GROUP).amax(-1)
+
+        try:  # the yardstick only: the port never calls it
+            log(f"library call torch._int_mm + rescale equals the plain version: "
+                f"{torch.equal(lib(), want)}")
+        except RuntimeError as e:
+            log(f"library call torch._int_mm not usable here ({str(e).splitlines()[0]})")
+            lib = None
+    else:
+        log("library call torch._int_mm not present in this torch: library_ms is null")
+
+    log(f"int8 kernel at b={b} n={n_pad} d={DIM} (must equal its plain version):")
+    entry = kernel_entry(
+        "gmax_int8", "hyperdb_tpu/ops/pallas_gmax.py:460", err,
+        lambda: G.gmax_int8(q_i8, q_scale, v, vs, extra),
+        lambda: G.gmax_int8_plain(q_i8, q_scale, v, vs, extra),
+        lib, scan_bound_ms(b, n_pad, DIM, n_pad // G.GROUP, "int8"),
+    )
+    q4 = q_i8.repeat(4, 1)
+    qs4 = q_scale.repeat(4)
+    ms_big = cuda_ms(lambda: G.gmax_int8(q4, qs4, v, vs, extra), reps=5)
+    bound, bound_by = scan_bound_ms(q4.shape[0], n_pad, DIM, n_pad // G.GROUP, "int8")
+    log(
+        f"kernel gmax_int8: b={q4.shape[0]} ms={ms_big:.4f} bound_ms={bound:.4f} "
+        f"({bound_by}) bound/ms={bound / ms_big:.3f}"
+    )
+    del v, vs, q4
+    torch.cuda.empty_cache()
+    return entry
+
+
+def run_batch(db, q, label, card, metric="cosine_similarity", **kw):
+    """One query_batch_arrays at the batch of ``q``, timed on the host clock."""
+    reps = 5 if q.shape[0] <= 1024 else 2
+    db.query_batch_arrays(q, top_k=TOP_K, metric=metric, **kw)
+    ms = wall_ms(lambda: db.query_batch_arrays(q, top_k=TOP_K, metric=metric, **kw), reps)
     log(f"{label}: b={q.shape[0]} ms/batch={ms:.3f} q/s={q.shape[0] / ms * 1e3:.1f} [{card}]")
-    return ids, vals, ms
+    return ms
+
+
+def log_breakdown(label, parts, wall, card):
+    device = sum(parts.values())
+    items = " ".join(f"{name}={ms:.3f}" for name, ms in parts.items())
+    log(
+        f"breakdown {label} (device ms): {items} sum={device:.3f}; batch wall={wall:.3f} "
+        f"-> host+transfers={wall - device:.3f} [{card}]"
+    )
 
 
 def stage_breakdown(db, q: np.ndarray, wall: float, card: str) -> None:
@@ -324,14 +603,239 @@ def stage_breakdown(db, q: np.ndarray, wall: float, card: str) -> None:
         "stage1": cuda_ms(lambda: G.gmax_f_sub(qq, plane, extra, sub=SUB, dual=False), 3, 1),
         "stage2": cuda_ms(lambda: G._select_subgroups(gm, sm, b, n, k, SUB), 3, 1),
         "stage3_rescore": cuda_ms(lambda: G._rescore(qq, plane, extra, sidx, SUB), 3, 1),
-        "stage3_topk": cuda_ms(lambda: G._finish_candidates(cs, sidx, b, k, SUB), 3, 1),
+        "stage3_topk": cuda_ms(lambda: G.finish_candidates(cs, sidx, b, k, SUB), 3, 1),
     }
-    device = sum(parts.values())
-    items = " ".join(f"{name}={ms:.3f}" for name, ms in parts.items())
-    log(
-        f"breakdown b={b} (device ms): {items} sum={device:.3f}; batch wall={wall:.3f} "
-        f"-> host+transfers={wall - device:.3f} [{card}]"
+    log_breakdown(f"cosine b={b}", parts, wall, card)
+
+
+def stage_breakdown_metric(db, metric: str, q: np.ndarray, wall: float, card: str) -> None:
+    """The same for one grouped-metric batch on its kernel route."""
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    dv = db._store.device_view(db.source_indices)
+    n, b, k = dv["n_pad"], q.shape[0], 16
+    if metric == "euclidean_metric":
+        rows, aux = dv["rows"], dv["row_sq"]
+    else:
+        bv = db._store.binary_view(db.source_indices)
+        rows, aux = bv["rows_bin"], bv["row_bin_sum"]
+    qt = torch.from_numpy(q).cuda()
+    q32, qq = R.grouped_metric_operands(qt, rows, metric)
+    mask_extra = G.make_extra(n, dv["row_valid"], device=rows.device)
+    if metric == "jaccard_similarity":
+        q_sum = q32.sum(-1, keepdim=True)
+        width = G.GROUP
+        stage1 = lambda: G.gmax_jaccard(qq, rows, q_sum, aux, mask_extra)  # noqa: E731
+        gm = stage1()
+        stage2 = lambda: R.exact_top_k(gm, k)[1]  # noqa: E731
+    else:
+        extra = mask_extra - aux
+        width = SUB
+        stage1 = lambda: G.gmax_f_sub(qq * 2, rows, extra, sub=SUB, dual=False)  # noqa: E731
+        gm, sm = stage1()
+        stage2 = lambda: G._select_subgroups(gm, sm, b, n, k, SUB)  # noqa: E731
+    cidx = stage2()
+
+    def stage3():
+        cs = R._grouped_metric_scores(
+            R.gather_dot(qq, rows, cidx, width), aux.view(n // width, width)[cidx], q32, metric, DIM
+        )
+        cs.masked_fill_(torch.isnan(cs), NEG_INF)
+        cs.masked_fill_(~dv["row_valid"].view(n // width, width)[cidx], NEG_INF)
+        return R.finish_candidates(cs, cidx, b, k, width)
+
+    parts = {
+        "operands": cuda_ms(lambda: R.grouped_metric_operands(qt, rows, metric), 3, 1),
+        "stage1": cuda_ms(stage1, 3, 1),
+        "stage2": cuda_ms(stage2, 3, 1),
+        "stage3": cuda_ms(stage3, 3, 1),
+    }
+    log_breakdown(f"{metric} b={b}", parts, wall, card)
+
+
+def stage_breakdown_int8(db, q: np.ndarray, wall: float, card: str) -> None:
+    """The same for one int8 cosine batch on the kernel route; with the
+    ``"int8"`` representation the candidate set is 4x wider and a last stage
+    rescores it against the float plane."""
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops import quantized as Q
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    dv = db._store.device_view(db.source_indices)
+    rescore = db._store.precision == "int8"
+    v_i8, vs, n = dv["rowsn_q"], dv["rown_scales"], dv["n_pad"]
+    b, k = q.shape[0], 16
+    k_fetch = 4 * k if rescore else k
+    qn = np.linalg.norm(q, axis=1, keepdims=True)
+    x = torch.from_numpy((q / qn).astype(np.float32)).cuda()
+    q_i8, q_scale = Q._quantize_device(x)
+    extra = G.make_extra(n, dv["row_valid"], None, device=v_i8.device)
+    gm = G.gmax_int8(q_i8, q_scale, v_i8, vs, extra)
+    gidx = R.exact_top_k(gm, k_fetch)[1]
+    stage3 = lambda: Q._rescore_groups(  # noqa: E731
+        q_i8, q_scale, v_i8, vs, gidx, G.GROUP, dv["row_valid"], None
     )
+    parts = {
+        "quantize": cuda_ms(lambda: Q._quantize_device(x), 3, 1),
+        "stage1": cuda_ms(lambda: G.gmax_int8(q_i8, q_scale, v_i8, vs, extra), 3, 1),
+        "stage2": cuda_ms(lambda: R.exact_top_k(gm, k_fetch), 3, 1),
+        "stage3_groups": cuda_ms(stage3, 3, 1),
+    }
+    if rescore:
+        cand = stage3()[1]
+        plane = dv["rows_norm"]
+
+        def overfetch():
+            exact = torch.einsum("bd,bkd->bk", x, plane[cand].float())
+            return R.exact_top_k(exact.masked_fill(~dv["row_valid"][cand], NEG_INF), k)
+
+        parts["rescore_f32"] = cuda_ms(overfetch, 3, 1)
+    log_breakdown(f"{db._store.precision} cosine b={b}", parts, wall, card)
+
+
+def zero_launches(G) -> None:
+    for key in G.LAUNCHES:
+        G.LAUNCHES[key] = 0
+
+
+def path_metrics(db, corpus, kernels, seed: int, card: str) -> None:
+    """Path B: the four grouped metrics at b = 512 through the entry point."""
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    n_pad = db._store.device_view(db.source_indices)["n_pad"]
+    rec = recency_vector(n_pad)
+    expect = {
+        "euclidean_metric": "gmax_f_sub", "hamming_distance": "gmax_f_sub",
+        "jaccard_similarity": "gmax_jaccard", "pearson_correlation": "gmax_f_sub",
+    }
+    for i, (metric, kernel) in enumerate(expect.items()):
+        # euclidean: no planted copy of a corpus row, whose d^2 ~ 0 cancels
+        # to noise that the square root amplifies past any tight tolerance
+        q = make_queries(seed + 30 + i, 512, corpus, plant=metric != "euclidean_metric")
+        atol = METRIC_ATOL[metric]
+        zero_launches(G)
+        ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric=metric)
+        launches = dict(G.LAUNCHES)
+        if launches[kernel] < 1 or sum(launches.values()) != launches[kernel]:
+            raise AssertionError(f"{metric}: expected {kernel} alone, launched {launches}")
+        if kernel == "gmax_jaccard":
+            kernels["gmax_jaccard"]["launches"] = launches[kernel]
+        swaps, err = check_top_k(metric, ids, vals, metric_reference(db, metric, q, TOP_K), atol)
+        log(
+            f"path B {metric} b=512: launches {json.dumps(launches)}; ids tie-aware equal to "
+            f"the plain reference ({swaps} tied swaps, score err {err:.3g}, tol {atol})"
+        )
+        wall = run_batch(db, q, f"path B {metric}", card, metric=metric)
+        if metric != "pearson_correlation":
+            stage_breakdown_metric(db, metric, q, wall, card)
+
+        zero_launches(G)
+        kw = {"recency_bias": RECENCY_BIAS, "timestamp_key": "ts"}
+        ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric=metric, **kw)
+        launches = dict(G.LAUNCHES)
+        want = {kernel: 1} if metric == "pearson_correlation" else {}
+        if {name: c for name, c in launches.items() if c} != want:
+            raise AssertionError(f"{metric} with recency: launched {launches}, expected {want}")
+        ref = metric_reference(db, metric, q, TOP_K, rec=rec)
+        swaps, err = check_top_k(f"{metric} recency", ids, vals, ref, atol)
+        log(
+            f"path B {metric} b=512 with recency: launches {json.dumps(launches)}; ids "
+            f"tie-aware equal ({swaps} tied swaps, score err {err:.3g}, tol {atol})"
+        )
+        del ref
+        torch.cuda.empty_cache()
+
+
+def path_int8(docs, corpus, kernels, plane_bf16, seed: int, card: str) -> None:
+    """Path A: int8-pure and int8 planes, cosine, through the entry point."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    t = time.perf_counter()
+    db = HyperDB(documents=docs, vectors=corpus, fp_precision="float16",
+                 device_precision="int8-pure")
+    dv = db._store.device_view(db.source_indices)
+    torch.cuda.synchronize()
+    log(f"int8-pure db build: {tuple(dv['rowsn_q'].shape)} {dv['rowsn_q'].dtype} planes, "
+        f"{time.perf_counter() - t:.1f} s")
+    kernels["gmax_int8"] = phase_kernel_int8(dv["rowsn_q"], dv["rown_scales"], seed)
+
+    q1k = make_queries(seed + 40, 1024, corpus)
+    q4k = make_queries(seed + 41, 4096, corpus)
+    zero_launches(G)
+    i1k, v1k = db.query_batch_arrays(q1k, top_k=TOP_K)
+    i4k, v4k = db.query_batch_arrays(q4k, top_k=TOP_K)
+    launches = dict(G.LAUNCHES)
+    log(f"path A int8-pure launches: {json.dumps(launches)}")
+    if launches["gmax_int8"] < 2:
+        raise AssertionError("int8-pure did not launch gmax_int8 once per batch")
+    kernels["gmax_int8"]["launches"] = launches["gmax_int8"]
+    swaps, err = check_top_k("int8-pure b=1024", i1k, v1k, int8_reference(dv, q1k, TOP_K), INT8_ATOL)
+    log(f"path A int8-pure b=1024: ids tie-aware equal to the plain int8 reference "
+        f"({swaps} tied swaps, score err {err:.3g}, tol {INT8_ATOL})")
+    swaps, err = check_top_k(
+        "int8-pure b=4096", i4k[:512], v4k[:512], int8_reference(dv, q4k[:512], TOP_K), INT8_ATOL
+    )
+    log(f"path A int8-pure b=4096: first 512 ids tie-aware equal ({swaps} tied swaps, "
+        f"score err {err:.3g})")
+    wall = run_batch(db, q1k, "path A int8-pure", card)
+    stage_breakdown_int8(db, q1k, wall, card)
+    wall = run_batch(db, q4k, "path A int8-pure", card)
+    stage_breakdown_int8(db, q4k, wall, card)
+
+    q64 = make_queries(seed + 42, 64, corpus)
+    zero_launches(G)
+    i64, v64 = db.query_batch_arrays(q64, top_k=TOP_K)
+    if any(G.LAUNCHES.values()):
+        raise AssertionError(f"int8-pure b=64 launched a kernel: {G.LAUNCHES}")
+    swaps, err = check_top_k("int8-pure b=64", i64, v64, int8_reference(dv, q64, TOP_K), INT8_ATOL)
+    log(f"path A int8-pure b=64 (plain grouped form, no launch): ids tie-aware equal "
+        f"({swaps} tied swaps, score err {err:.3g})")
+    try:
+        db.query_batch_arrays(q64, top_k=TOP_K, metric="euclidean_metric")
+    except ValueError as e:
+        log(f"int8-pure + euclidean raises: {str(e)[:60]}...")
+    else:
+        raise AssertionError("int8-pure + euclidean_metric did not raise")
+    del db, dv
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    db = HyperDB(documents=docs, vectors=corpus, fp_precision="float16", device_precision="int8")
+    dv = db._store.device_view(db.source_indices)
+    torch.cuda.synchronize()
+    log(f"int8 db build: {time.perf_counter() - t:.1f} s")
+    zero_launches(G)
+    ids, vals = db.query_batch_arrays(q1k, top_k=TOP_K)
+    launches = dict(G.LAUNCHES)
+    log(f"path A int8 launches: {json.dumps(launches)}")
+    if launches["gmax_int8"] < 1:
+        raise AssertionError("int8 did not launch gmax_int8")
+    kernels["gmax_int8"]["launches"] += launches["gmax_int8"]
+    kernel_fn = G.gmax_int8
+    G.gmax_int8 = G.gmax_int8_plain  # the same route with the plain stage 1
+    try:
+        ids_p, vals_p = db.query_batch_arrays(q1k, top_k=TOP_K)
+    finally:
+        G.gmax_int8 = kernel_fn
+    if G.LAUNCHES != launches:
+        raise AssertionError("the plain stage 1 launched a kernel")
+    if not (np.array_equal(ids, ids_p) and np.array_equal(vals, vals_p)):
+        raise AssertionError("int8: the kernel route and the plain stage 1 disagree")
+    ref = cosine_reference(plane_bf16, N_DOCS, q1k, TOP_K)
+    ref_ids = ref.ids.cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / TOP_K for a, b in zip(ids.tolist(), ref_ids.tolist())]))
+    log(f"path A int8 b=1024: ids identical to the plain stage 1; recall@{TOP_K} against the "
+        f"exact bf16 reference = {recall:.5f}")
+    if recall < 0.99:
+        raise AssertionError(f"int8 recall@{TOP_K} {recall:.4f} < 0.99")
+    if list(ids[0, :2]) != [4, 17]:
+        raise AssertionError(f"int8: duplicate rows 4/17 not first in lower-id order: {ids[0, :2]}")
+    wall = run_batch(db, q1k, "path A int8", card)
+    stage_breakdown_int8(db, q1k, wall, card)
+    del db, dv, ref
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -358,21 +862,21 @@ def main() -> int:
     # 3 (data first: phase 2 runs on the main path's own plane)
     t = time.perf_counter()
     corpus = make_corpus(args.seed)
-    db = HyperDB(documents=list(range(N_DOCS)), vectors=corpus, fp_precision="float16")
+    docs = make_documents()
+    db = HyperDB(documents=docs, vectors=corpus, fp_precision="float16", metadata_keys=["ts"])
     dv = db._store.device_view(db.source_indices)
     plane, n_pad = dv["rows_norm"], dv["n_pad"]
     torch.cuda.synchronize()
     log(f"db build: {N_DOCS} x {DIM} f16 -> {tuple(plane.shape)} {plane.dtype} plane "
         f"on {plane.device}, {time.perf_counter() - t:.1f} s")
 
-    # 2. kernels against their plain versions
+    # 2. float kernels against their plain versions
     kernels = phase_kernels(plane, N_DOCS, args.seed)
 
     # 3. the main path: launch counts from this run only
     q512 = make_queries(args.seed + 2, 512, corpus)
     q16k = make_queries(args.seed + 3, 16384, corpus)
-    for key in G.LAUNCHES:
-        G.LAUNCHES[key] = 0
+    zero_launches(G)
     i512, v512 = db.query_batch_arrays(q512, top_k=TOP_K, metric="cosine_similarity")
     i16k, v16k = db.query_batch_arrays(q16k, top_k=TOP_K, metric="cosine_similarity")
     launches = dict(G.LAUNCHES)
@@ -386,17 +890,16 @@ def main() -> int:
     log(f"main b=512: ids tie-aware equal to the reference ({swaps} tied swaps, score err {err:.3g})")
     swaps, err = check_ids("b=16384", i16k[:512], v16k[:512], plane, N_DOCS, q16k[:512], TOP_K)
     log(f"main b=16384: first 512 ids tie-aware equal ({swaps} tied swaps, score err {err:.3g})")
-    _, _, wall = run_batch(db, q512, "main path", card)
+    wall = run_batch(db, q512, "main path", card)
     stage_breakdown(db, q512, wall, card)
-    _, _, wall = run_batch(db, q16k, "main path", card)
+    wall = run_batch(db, q16k, "main path", card)
     stage_breakdown(db, q16k, wall, card)
-    del i16k, v16k
+    del i16k, v16k, q16k
 
     # 4. gmax_f through the entry point
     sub = CONFIG.pallas_subgroup
     CONFIG.pallas_subgroup = 0
-    for key in G.LAUNCHES:
-        G.LAUNCHES[key] = 0
+    zero_launches(G)
     ids, vals = db.query_batch_arrays(q512, top_k=TOP_K, metric="cosine_similarity")
     launches_f = dict(G.LAUNCHES)
     log(f"gmax_f path launches: {json.dumps(launches_f)}")
@@ -423,7 +926,27 @@ def main() -> int:
     log(f"query b=1: ids tie-aware equal ({swaps} tied swaps, score err {err:.3g})")
     run_batch(db, q64, "plain grouped route", card)
 
-    log(json.dumps({"kernels": [kernels["gmax_f_sub"], kernels["gmax_f"]]}))
+    # 6. path B: grouped metrics on the same DB
+    t = time.perf_counter()
+    bv = db._store.binary_view(db.source_indices)
+    torch.cuda.synchronize()
+    log(f"binary view build: {time.perf_counter() - t:.1f} s")
+    kernels["gmax_jaccard"] = phase_kernel_jaccard(bv["rows_bin"], bv["row_bin_sum"], args.seed)
+    path_metrics(db, corpus, kernels, args.seed, card)
+    # the planes path A needs no more: keep only the cosine plane for its recall check
+    for key in ("rows", "rows_bin", "row_bin_sum", "rows_pearson"):
+        dv.pop(key, None)
+    del bv
+    torch.cuda.empty_cache()
+
+    # 7. path A: int8 planes
+    path_int8(docs, corpus, kernels, plane, args.seed, card)
+
+    names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard")
+    for name in names:
+        if kernels[name]["launches"] < 1:
+            raise AssertionError(f"{name} was never launched through HyperDB")
+    log(json.dumps({"kernels": [kernels[name] for name in names]}))
     log(json.dumps({
         "ok": True,
         "device": {

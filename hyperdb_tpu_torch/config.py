@@ -44,6 +44,10 @@ class EngineConfig:
     # with the group maxes taken as a max over each run outside the kernel
     # (bitwise identical — max is exact).
     pallas_sub_dual: int = _env_int("HYPERDB_PALLAS_SUB_DUAL", 0)
+    # Row count from which an int8-pure corpus asks for the two-stage
+    # reduced-rank index (index/projscan in the JAX package; opt-in). The
+    # index is not ported: a corpus at or above it raises.
+    projscan_threshold: int = _env_int("HYPERDB_PROJSCAN_THRESHOLD", 1 << 62)
     # Rank on the host (NumPy) when corpus_rows * batch is at most this many
     # score cells: below it a device launch costs more than the scan.
     # 0 disables.

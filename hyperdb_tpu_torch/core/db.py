@@ -6,7 +6,9 @@ surface: the constructor, ``add(documents, vectors=...)``, ``query``,
 The host keeps the documents and bookkeeping; scoring runs on ``device``
 (``"cuda"`` unless the caller asks for ``"cpu"``). Text embedding,
 chunking, persistence, IVF and projscan raise ``NotImplementedError`` until
-their slices (ROADMAP.md queue 1).
+their slices (ROADMAP.md queue 1). ``device_precision`` selects the device
+planes: ``"auto"``, ``"int8"`` (int8 scan, exact rescore against the float
+plane) or ``"int8-pure"`` (int8 planes only; dot and cosine).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from hyperdb_tpu_torch.config import CONFIG
 from hyperdb_tpu_torch.core import nested as _nested
 from hyperdb_tpu_torch.core.store import VectorStore
 from hyperdb_tpu_torch.index.flat import FlatIndex
@@ -59,9 +62,9 @@ class HyperDB:
 
     Args mirror ``hyperdb_tpu.HyperDB``: documents, vectors, select_keys,
     embedding_function, fp_precision, add_timestamp, metadata_keys,
-    ann_metric, n_trees, cache_size, device_precision (only ``"auto"``
-    so far: bf16 planes for float16 masters, f32 otherwise); plus
-    ``device``.
+    ann_metric, n_trees, cache_size, device_precision (``"auto"``: bf16
+    planes for float16 masters, f32 otherwise; ``"int8"``; ``"int8-pure"``;
+    default from ``HYPERDB_DEVICE_PRECISION``); plus ``device``.
     """
 
     def __init__(
@@ -84,8 +87,6 @@ class HyperDB:
             device_precision = os.environ.get("HYPERDB_DEVICE_PRECISION", "auto")
         if device_precision not in ("auto", "int8", "int8-pure"):
             raise ValueError("device_precision must be auto, int8 or int8-pure.")
-        if device_precision != "auto":
-            _not_ported(f"device_precision={device_precision!r}", "item 5")
         self.lru_cache = LRUCache(maxsize=cache_size)
         self.cache_hits = 0
         self.cache_misses = 0
@@ -104,7 +105,9 @@ class HyperDB:
         self.select_keys = select_keys
         self.add_timestamp = add_timestamp
         self.fp_precision = getattr(np, fp_precision)
-        self._store = VectorStore(self.fp_precision, device=self.device)
+        self._store = VectorStore(
+            self.fp_precision, precision=device_precision, device=self.device
+        )
         self.embedding_function = embedding_function or self.get_embedding
         self.n_trees = n_trees
         if isinstance(self.select_keys, str):
@@ -169,14 +172,17 @@ class HyperDB:
         """A port DB computing the same thing as a JAX ``HyperDB`` whose plain
         state is ``state``: ``vectors`` (the f16/f32 host master),
         ``documents``, ``source_indices``, ``metadata_keys``,
-        ``fp_precision`` and ``ann_metric``, all NumPy/Python values read off
-        the JAX DB by the caller."""
+        ``fp_precision``, ``ann_metric`` and ``device_precision`` (the JAX
+        store's ``precision``; "auto" when absent), all NumPy/Python values
+        read off the JAX DB by the caller. The device planes are computed on
+        the host as the JAX store computes them, so they come out bit-equal."""
         db = cls(
             documents=list(state["documents"]),
             vectors=np.asarray(state["vectors"]),
             fp_precision=np.dtype(state["fp_precision"]).name,
             metadata_keys=list(state.get("metadata_keys") or []),
             ann_metric=state.get("ann_metric", "cosine"),
+            device_precision=state.get("device_precision", "auto"),
             device=device,
         )
         src = state.get("source_indices")
@@ -287,6 +293,12 @@ class HyperDB:
             self.ann_index = None
             return
         self.vectors_normalized = self.ann_metric == "cosine"
+        if (
+            self._store.precision == "int8-pure"
+            and self.vectors.shape[0] >= CONFIG.projscan_threshold
+            and self.ann_metric in ("cosine", "angular", "dot")
+        ):
+            _not_ported("the projscan two-stage index", "item 10")
         if self.vectors.shape[0] >= IVF_THRESHOLD:
             _not_ported("the IVF index", "item 10")
         self.ann_index = FlatIndex(self.ann_metric, int(self.vectors.shape[1]))

@@ -24,7 +24,28 @@ kernels (``ops/gmax.supported``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def pearson_center_normalize(x: np.ndarray) -> np.ndarray:
+    """IN PLACE: center + unit-normalize rows of an OWNED float32 array.
+
+    The host-side transform behind the pearson-as-dot plane and query block
+    (``store.pearson_view``, the engine's pearson branch): pearson(q, v) ==
+    dot(T(q), T(v)) for T = this function. Constant rows divide 0/0 -> NaN
+    ON PURPOSE — every ranking route scrubs NaN -> -inf after its product,
+    which is the reference's constant-vector contract
+    (ranking_algorithm.py:107-111). In place so the full-corpus plane build
+    needs exactly one (n_pad, d) f32 temp; callers pass an array they own,
+    never user data.
+    """
+    x -= x.mean(axis=1, keepdims=True)
+    norms = np.linalg.norm(x, axis=1, keepdims=True)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        x /= norms  # constant rows -> NaN rows (intended)
+    return x
+
 
 # Canonical query-metric names (reference hyperdb.py:1449).
 METRICS = (
@@ -70,6 +91,16 @@ def _match_low_precision(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def qv_dot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, d) x (N, d) -> (B, N) inner products, f32 accumulation."""
+    return q.float() @ v.float().T
+
+
+def dot_f32(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, d) x (R, d) -> (B, R) inner products with f32 accumulation and
+    f32 output. On the card a bf16/f16 pair multiplies as it is and only the
+    output is f32, so the corpus block is not upcast; elsewhere both sides
+    are upcast first. Either way the products are exact in f32."""
+    if q.is_cuda and q.dtype == v.dtype and q.dtype in LOW_PRECISION:
+        return torch.mm(q, v.T, out_dtype=torch.float32)
     return q.float() @ v.float().T
 
 

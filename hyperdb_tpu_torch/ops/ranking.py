@@ -1,10 +1,11 @@
 """Scoring + recency + mask + exact top-k, as tensor code around the kernels.
 
-Counterpart of ``hyperdb_tpu/ops/ranking.py`` for the routes of this slice:
+Counterpart of ``hyperdb_tpu/ops/ranking.py`` for the routes ported so far:
 the router :func:`rank_top_k`, the plain grouped form
-:func:`rank_top_k_grouped`, and the materialising fallback over the seven
-metrics. Batches at or above ``CONFIG.pallas_gmax_f_min_batch`` over a bf16
-plane go to the stage-1 kernels (``ops/gmax.py``).
+:func:`rank_top_k_grouped`, the grouped euclidean/hamming/jaccard form
+:func:`rank_top_k_grouped_metric`, and the materialising fallback over the
+seven metrics. Batches at or above ``CONFIG.pallas_gmax_f_min_batch`` over
+a bf16 plane go to the stage-1 kernels (``ops/gmax.py``).
 
 Semantics kept from the reference ranker (ranking_algorithm.py:149-204):
 NaN scores become -inf before recency is added; masks act as an additive
@@ -23,6 +24,10 @@ from hyperdb_tpu_torch.ops.metrics import LOW_PRECISION, scores
 NEG_INF = float("-inf")
 
 _LOW32 = (1 << 32) - 1
+
+# f32 score cells per chunk of the plain forms and of the stage-3 rescore:
+# bounds their temporaries at full corpus size on the card.
+_CHUNK_CELLS = 1 << 28
 
 
 def exact_top_k(s: torch.Tensor, k: int):
@@ -69,6 +74,36 @@ def exact_top_k_grouped(s: torch.Tensor, k: int, group: int = 1024):
     return vals, winner * group + pos % group
 
 
+def gather_dot(queries, rows, cidx, width: int):
+    """Stage 3's product: exact f32 inner products of each query with its
+    (B, k) candidate runs ``cidx`` of ``width`` rows -> (B, k, width).
+
+    Both operands are upcast before the product: a bf16 product on the card
+    would round its output to bf16 (int8 rows upcast exactly). Chunked over
+    queries to bound the gathered (c, k, width, d) block; chunking changes
+    no result."""
+    n, d = rows.shape
+    b, k = cidx.shape
+    r3 = rows.view(n // width, width, d)
+    out = torch.empty((b, k, width), dtype=torch.float32, device=queries.device)
+    chunk = max(1, (_CHUNK_CELLS * 4) // (k * width * d))
+    for a in range(0, b, chunk):
+        cand = r3[cidx[a : a + chunk]].float()  # (c, k, width, d)
+        c = cand.shape[0]
+        q = queries[a : a + chunk].float()
+        out[a : a + c] = torch.matmul(
+            cand.view(c, k * width, d), q[:, :, None]
+        ).view(c, k, width)
+    return out
+
+
+def finish_candidates(cs, sidx, b: int, k: int, width: int):
+    """Final top-k over (B, k, width) rescored candidates -> global row ids."""
+    vals, pos = exact_top_k(cs.reshape(b, k * width), k)
+    winner = torch.gather(sidx, 1, pos // width)
+    return vals, winner * width + pos % width
+
+
 def _auto_group(batch: int) -> int:
     """Group width of the grouped routes (the JAX package's rule)."""
     return 128 if batch >= 128 else 256
@@ -98,6 +133,115 @@ def rank_top_k_grouped(
     if n % group or n <= k * group:
         return exact_top_k(s, k)
     return exact_top_k_grouped(s, k, group=group)
+
+
+# Metrics served by rank_top_k_grouped_metric: one matmul plus a per-row
+# scalar turn the exact score into an epilogue of the grouped product.
+GROUPED_METRICS = ("euclidean_metric", "hamming_distance", "jaccard_similarity")
+
+
+def _grouped_metric_scores(inter, aux, q32, metric: str, dim: int):
+    """Exact similarity from the inner-product term + per-row constants.
+
+    ``inter`` is q.v (euclidean, over raw rows) or qb.vb (hamming/jaccard,
+    over 0/1 binarized rows) with any leading/group shape; ``aux`` broadcasts
+    against it carrying |v|^2 (euclidean) or popcount |vb| (hamming/jaccard).
+    ``q32`` is the (B, d) f32 query block (raw or binarized to match rows).
+    """
+    lead = (-1,) + (1,) * (inter.ndim - 1)
+    if metric == "euclidean_metric":
+        qsq = torch.sum(q32 * q32, dim=-1).view(lead)
+        d2 = aux - 2.0 * inter + qsq
+        return 1.0 / (1.0 + torch.sqrt(torch.clamp(d2, min=0.0)))
+    qsum = torch.sum(q32, dim=-1).view(lead)
+    if metric == "hamming_distance":
+        return float(dim) - (aux + qsum - 2.0 * inter)
+    if metric == "jaccard_similarity":
+        union = aux + qsum - inter
+        return inter / union  # 0/0 -> NaN, scrubbed to -inf by the caller
+    raise ValueError(f"metric '{metric}' has no grouped epilogue form")
+
+
+def grouped_metric_operands(queries, rows, metric: str):
+    """(q32, qq): the f32 query block the epilogue reads (binarized ``x > 0``
+    for hamming/jaccard) and the block the product takes, cast to a
+    low-precision plane's dtype."""
+    if metric in ("hamming_distance", "jaccard_similarity"):
+        q32 = (queries > 0).float()
+    else:
+        q32 = queries.float()
+    return q32, _metrics._match_low_precision(q32, rows)
+
+
+def rank_top_k_grouped_metric(
+    queries, rows, row_aux, k: int, metric: str,
+    row_mask=None, recency=None, group: int = 128,
+):
+    """Grouped exact top-k for euclidean/hamming/jaccard
+    (``ranking.rank_top_k_grouped_metric`` in the JAX package).
+
+    These metrics are one matmul plus per-row constants (reference
+    ranking_algorithm.py:44-52,63-75,128-147):
+
+        euclidean:  1/(1 + sqrt(|v|^2 - 2 q.v + |q|^2))
+        hamming:    d - (|vb| + |qb| - 2 qb.vb)        (0/1 rows)
+        jaccard:    qb.vb / (|vb| + |qb| - qb.vb)      (0/1 rows)
+
+    so stage 1 computes the exact score, keeps each group's max and selects
+    the top-k groups, and stage 3 recomputes it on those groups' gathered
+    rows. Without recency, big batches over a bf16 plane go to the stage-1
+    kernels (``gmax.rank_top_k_grouped_metric_gmax``); recency breaks the
+    surrogate's monotonicity, so recency queries stay here. The plain form
+    scores chunks of queries at a time and, on the card, multiplies the
+    low-precision plane as it is (``metrics.dot_f32``).
+
+    Args:
+        queries: (B, d) raw query block (binarized here for hamming/jaccard).
+        rows: (N, d) corpus — RAW rows for euclidean, 0/1 rows (``x > 0``)
+            for hamming/jaccard (``VectorStore.binary_view``).
+        row_aux: (N,) f32 — |v|^2 (euclidean) or popcount |vb|; zero on
+            padding rows.
+        k, row_mask, recency, group: as in :func:`rank_top_k_grouped`.
+    """
+    if metric not in GROUPED_METRICS:
+        raise ValueError(f"metric '{metric}' has no grouped epilogue form")
+    q32, qq = grouped_metric_operands(queries, rows, metric)
+    n, d = rows.shape
+    b = queries.shape[0]
+
+    if recency is None and _use_gmax(qq, rows, k):
+        from hyperdb_tpu_torch.ops.gmax import rank_top_k_grouped_metric_gmax
+
+        return rank_top_k_grouped_metric_gmax(
+            queries, rows, row_aux, k, metric, row_mask=row_mask
+        )
+
+    grouped = not (n % group or n <= k * group)
+    chunk = max(1, _CHUNK_CELLS // n)
+    parts = []
+    for a in range(0, b, chunk):
+        s = _grouped_metric_scores(
+            _metrics.dot_f32(qq[a : a + chunk], rows), row_aux[None, :],
+            q32[a : a + chunk], metric, d,
+        )
+        s = _scrub(s, row_mask, recency)
+        parts.append(
+            s.view(s.shape[0], n // group, group).amax(-1) if grouped else exact_top_k(s, k)
+        )
+    if not grouped:
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    _, gidx = exact_top_k(torch.cat(parts), k)  # (B, k)
+    g = n // group
+    cs = _grouped_metric_scores(
+        gather_dot(qq, rows, gidx, group), row_aux.view(g, group)[gidx], q32, metric, d
+    )
+    cs = cs.masked_fill_(torch.isnan(cs), NEG_INF)
+    if recency is not None:
+        cs = cs + recency.view(g, group)[gidx]
+    if row_mask is not None:
+        cs = cs.masked_fill(~row_mask.view(g, group)[gidx], NEG_INF)
+    return finish_candidates(cs, gidx, b, k, group)
 
 
 def _use_gmax(queries, vectors, k: int) -> bool:

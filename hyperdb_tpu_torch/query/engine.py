@@ -2,9 +2,11 @@
 
 Counterpart of ``hyperdb_tpu/query/engine.py``: filters become host masks,
 then one ranking call runs on the store's device (score + NaN scrub + mask
-+ recency + top-k). This slice serves unchunked corpora (one row per
-document), the key-filter override branch and the tiny-corpus host path;
-every other branch raises ``NotImplementedError`` naming its ROADMAP item.
++ recency + top-k). Served so far: unchunked corpora (one row per document)
+on float, int8 and int8-pure planes, with the grouped routes of every
+metric but manhattan; the key-filter override branch; and the tiny-corpus
+host path. Every other branch raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 Preserved reference semantics (SURVEY.md §2.4): Q10/Q11 metric naming and
 the brute-force INFO message, Q13 empty-candidate handling, Q16/Q17
@@ -22,8 +24,10 @@ from hyperdb_tpu_torch.config import CONFIG
 from hyperdb_tpu_torch.core.nested import get_nested_value
 from hyperdb_tpu_torch.core.store import bucket_size
 from hyperdb_tpu_torch.ops.host_ranking import rank_block_host
-from hyperdb_tpu_torch.ops.metrics import METRICS
-from hyperdb_tpu_torch.ops.ranking import _auto_group, rank_top_k
+from hyperdb_tpu_torch.ops import ranking as _ranking
+from hyperdb_tpu_torch.ops.metrics import METRICS, pearson_center_normalize
+from hyperdb_tpu_torch.ops.quantized import rank_top_k_int8
+from hyperdb_tpu_torch.ops.ranking import rank_top_k
 from hyperdb_tpu_torch.query import filters as _filters
 from hyperdb_tpu_torch.utils import log
 from hyperdb_tpu_torch.utils.devio import fetch
@@ -40,6 +44,17 @@ METRIC_TO_ANN = {
 
 def _pad_pow2(k: int) -> int:
     return 1 << max(0, (k - 1)).bit_length() if k > 1 else 1
+
+
+def _grouped_group(n_pad: int, batch: int) -> int:
+    """Resolved group size for the grouped routes, or 0 when the corpus is
+    too small / not group-divisible (one halving rule for every caller)."""
+    if CONFIG.grouped_topk_min_rows <= 0 or n_pad < CONFIG.grouped_topk_min_rows:
+        return 0
+    group = _ranking._auto_group(batch)
+    while group >= 32 and n_pad % group:
+        group //= 2
+    return group if group >= 32 and n_pad % group == 0 else 0
 
 
 def is_numeric_array(array: np.ndarray) -> bool:
@@ -379,10 +394,10 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
             )
         return idx, vals
 
-    q = np.ascontiguousarray(q_block)
-    if q.dtype != np.float16:
-        q = q.astype(np.float32, copy=False)
-    q = torch.from_numpy(q).to(device)
+    q_host = np.ascontiguousarray(q_block)
+    if q_host.dtype != np.float16:
+        q_host = q_host.astype(np.float32, copy=False)
+    q = torch.from_numpy(q_host).to(device)
     k_pad = min(_pad_pow2(top_k), bucket_size(num_docs))
 
     if override is not None:
@@ -421,21 +436,85 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
             rec_host[:num_docs] = recency
             rec_pad = torch.from_numpy(rec_host).to(device)
         prenorm = metric == "cosine_similarity"
-        if metric in ("euclidean_metric", "hamming_distance", "jaccard_similarity",
-                      "pearson_correlation") and _grouped_ok(n_pad, q.shape[0]):
-            raise NotImplementedError(
-                f"grouped {metric} over a large corpus is not ported yet: "
-                "ROADMAP.md queue 1, item 6"
+        precision = store.precision
+        k_eff = min(k_pad, n_pad)
+        batch = int(q_host.shape[0])
+        if precision in ("int8", "int8-pure") and metric in (
+            "dot_product",
+            "cosine_similarity",
+        ):
+            qq = q
+            if prenorm:
+                # on the host in NumPy, as the JAX engine does: f32
+                # accumulation, result back at the wire dtype, so both
+                # packages quantize the same query bits
+                q32 = np.asarray(q_host, dtype=np.float32)
+                qn = np.linalg.norm(q32, axis=1, keepdims=True)
+                qn[qn == 0] = 1.0
+                qq = torch.from_numpy(
+                    np.ascontiguousarray((q32 / qn).astype(q_host.dtype))
+                ).to(device)
+            rescore = None
+            if precision == "int8":
+                rescore = dv["rows_norm"] if prenorm else dv["rows"]
+            vals, idx = rank_top_k_int8(
+                qq,
+                dv["rowsn_q"] if prenorm else dv["rows_q"],
+                dv["rown_scales"] if prenorm else dv["row_scales"],
+                k=k_eff,
+                row_mask=row_mask_dev,
+                recency=rec_pad,
+                rescore_rows=rescore,
             )
-        vals, idx = rank_top_k(
-            q,
-            dv["rows_norm"] if prenorm else dv["rows"],
-            k=min(k_pad, n_pad),
-            metric=metric,
-            row_mask=row_mask_dev,
-            recency=rec_pad,
-            prenormalized=prenorm,
-        )
+        elif precision == "int8-pure":
+            raise ValueError(
+                f"device_precision='int8-pure' supports only dot_product and "
+                f"cosine_similarity on the device scan (got '{metric}'); use "
+                "device_precision='int8' or 'auto' for other metrics."
+            )
+        elif metric in _ranking.GROUPED_METRICS and _grouped_group(n_pad, batch):
+            # euclidean/hamming/jaccard ride the grouped epilogue routes:
+            # exact scores fused into the grouped product + group-max
+            if metric == "euclidean_metric":
+                g_rows, g_aux = dv["rows"], dv["row_sq"]
+            else:
+                bv = store.binary_view(db.source_indices)
+                g_rows, g_aux = bv["rows_bin"], bv["row_bin_sum"]
+            vals, idx = _ranking.rank_top_k_grouped_metric(
+                q,
+                g_rows,
+                g_aux,
+                k=k_eff,
+                metric=metric,
+                row_mask=row_mask_dev,
+                recency=rec_pad,
+                group=_grouped_group(n_pad, batch),
+            )
+        elif metric == "pearson_correlation" and _grouped_group(n_pad, batch):
+            # pearson == dot over centered unit-norm rows (store.pearson_view
+            # has the algebra), so the big-batch scan rides the dot routing.
+            # Constant rows/queries become NaN operands whose scores every
+            # route scrubs to -inf, as the pearson_scores fallback does.
+            plane = store.pearson_view(db.source_indices)["rows_pearson"]
+            qq = pearson_center_normalize(np.array(q_host, dtype=np.float32))
+            vals, idx = rank_top_k(
+                torch.from_numpy(qq).to(device).to(plane.dtype),
+                plane,
+                k=k_eff,
+                metric="dot_product",
+                row_mask=row_mask_dev,
+                recency=rec_pad,
+            )
+        else:
+            vals, idx = rank_top_k(
+                q,
+                dv["rows_norm"] if prenorm else dv["rows"],
+                k=k_eff,
+                metric=metric,
+                row_mask=row_mask_dev,
+                recency=rec_pad,
+                prenormalized=prenorm,
+            )
     else:
         raise NotImplementedError(
             "chunked corpora (several rows per document) are not ported yet: "
@@ -444,13 +523,3 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
 
     idx_h, vals_h = fetch(idx, vals)
     return idx_h[:, :top_k], vals_h[:, :top_k]
-
-
-def _grouped_ok(n_pad: int, batch: int) -> bool:
-    """Corpus large enough (and group-divisible) for the grouped routes."""
-    if CONFIG.grouped_topk_min_rows <= 0 or n_pad < CONFIG.grouped_topk_min_rows:
-        return False
-    group = _auto_group(batch)
-    while group >= 32 and n_pad % group:
-        group //= 2
-    return group >= 32 and n_pad % group == 0

@@ -5,6 +5,9 @@ a Hopper card run ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
 Tolerance: 1e-5 absolute on unit-norm rows and queries — the kernel and
 cuBLAS sum the same exact bf16 products in f32 in different orders, which
 moves scores of magnitude <= 1 by a few f32 ulps (~1e-7 each); -inf positions must match exactly.
+``gmax_int8`` and ``gmax_jaccard`` must EQUAL their plain versions: their
+products are exact integers and their epilogues are the same sequence of
+IEEE f32 operations, with no multiply-add contracted.
 """
 
 import numpy as np
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from hyperdb_tpu_torch.ops import gmax as G
+from hyperdb_tpu_torch.ops import quantized as Q
 from hyperdb_tpu_torch.ops import ranking as R
 
 pytestmark = pytest.mark.cuda
@@ -129,3 +133,138 @@ def test_db_on_card_matches_cpu(dev, monkeypatch, sub):
     assert np.abs(gv - pv).max() <= ATOL
     diff = gi != pi
     assert (np.abs(gv - pv)[diff] <= ATOL).all()
+
+
+@pytest.mark.parametrize("b,n,d", [(128, 4096, 384), (77, 2048, 128), (300, 1024, 48), (8, 256, 1024)])
+def test_gmax_int8_kernel_equals_plain(dev, b, n, d):
+    rng = np.random.default_rng(b)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    v[5] = 0.0  # zero-scale row: 0 + extra, not NaN
+    v[128:256] = 0.0  # a whole zero-scale group
+    v_i8, sc = Q.quantize_rows(v)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    q[1] = 0.0
+    q_i8, q_scale = Q._quantize_device(q)
+    mask = rng.random(n) < 0.9
+    mask[384:512] = False
+    rec = (rng.random(n) * 0.05).astype(np.float32)
+    extra = G.make_extra(
+        n, torch.from_numpy(mask).to(dev), torch.from_numpy(rec).to(dev), device=dev
+    )
+    args = (q_i8, q_scale, torch.from_numpy(v_i8).to(dev), torch.from_numpy(sc).to(dev), extra)
+    before = G.LAUNCHES["gmax_int8"]
+    got = G.gmax_int8(*args)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["gmax_int8"] == before + 1
+    assert torch.equal(got, G.gmax_int8_plain(*args))
+    if n >= 512:
+        assert torch.isneginf(got[:, 3]).all()  # the masked group
+
+
+@pytest.mark.parametrize("b,n,d", [(128, 4096, 384), (77, 2048, 128), (300, 1024, 40)])
+def test_gmax_jaccard_kernel_equals_plain(dev, b, n, d):
+    rng = np.random.default_rng(n)
+    vb = (rng.standard_normal((n, d)) > 0).astype(np.float32)
+    vb[5] = 0.0
+    vb[128:256] = 0.0  # a whole group of empty rows
+    qb = (rng.standard_normal((b, d)) > 0).astype(np.float32)
+    qb[1] = 0.0  # an empty query: 0/0 against the empty rows
+    mask = rng.random(n) < 0.9
+    mask[384:512] = False
+    extra = G.make_extra(n, torch.from_numpy(mask).to(dev), device=dev)
+    args = (
+        torch.from_numpy(qb).to(dev).bfloat16(), torch.from_numpy(vb).to(dev).bfloat16(),
+        torch.from_numpy(qb.sum(1, keepdims=True)).to(dev), torch.from_numpy(vb.sum(1)).to(dev),
+        extra,
+    )
+    before = G.LAUNCHES["gmax_jaccard"]
+    got = G.gmax_jaccard(*args)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["gmax_jaccard"] == before + 1
+    assert torch.equal(got, G.gmax_jaccard_plain(*args))
+    assert torch.isneginf(got[1, 1]) and torch.isneginf(got[:, 3]).all()
+
+
+def test_quantize_device_card_equals_cpu(dev):
+    """Query quantization divides in IEEE on the card as on the CPU: torch
+    turns a division by a Python scalar into a multiplication by its
+    reciprocal there, which moved scales by an ulp and a few quantized
+    elements by one."""
+    x = torch.from_numpy(
+        np.random.default_rng(5).standard_normal((4096, 384)).astype(np.float32)
+    )
+    x /= x.norm(dim=1, keepdim=True)
+    cq, cs = Q._quantize_device(x)
+    gq, gs = Q._quantize_device(x.to(dev))
+    assert torch.equal(gs.cpu(), cs) and torch.equal(gq.cpu(), cq)
+
+
+@pytest.mark.parametrize("precision", ["int8", "int8-pure"])
+def test_int8_db_on_card_matches_cpu(dev, monkeypatch, precision):
+    """The int8 slice end to end: the same DB on the card (gmax_int8) and
+    on the CPU (its plain version) returns the same ids. The quantized
+    scores are equal; the f32 rescore of the int8 mode sums in another
+    order on the card (1e-5)."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    monkeypatch.setattr(Q, "_EPILOGUE_BUDGET_BYTES", 1 << 22)
+    rng = np.random.default_rng(9)
+    v = (rng.standard_normal((16384, 384)) / np.sqrt(384)).astype(np.float16)
+    docs = list(range(16384))
+    q = rng.standard_normal((600, 384)).astype(np.float32)
+    card = HyperDB(docs, v, fp_precision="float16", device=dev, device_precision=precision)
+    cpu = HyperDB(docs, v, fp_precision="float16", device="cpu", device_precision=precision)
+    before = G.LAUNCHES["gmax_int8"]
+    gi, gv = card.query_batch_arrays(q, top_k=10)
+    assert G.LAUNCHES["gmax_int8"] == before + 1
+    pi, pv = cpu.query_batch_arrays(q, top_k=10)
+    tol = 0.0 if precision == "int8-pure" else ATOL
+    assert np.abs(gv - pv).max() <= tol
+    diff = gi != pi
+    assert (np.abs(gv - pv)[diff] <= tol).all() and diff.mean() < 0.01
+    # below the budget: the plain grouped int8 form, on the card too
+    gi, gv = card.query_batch_arrays(q[:64], top_k=10)
+    assert G.LAUNCHES["gmax_int8"] == before + 1
+    pi, pv = cpu.query_batch_arrays(q[:64], top_k=10)
+    assert np.abs(gv - pv).max() <= tol and (gi == pi).mean() > 0.99
+
+
+@pytest.mark.parametrize(
+    "metric, kernel",
+    [
+        ("euclidean_metric", "gmax_f_sub"),
+        ("hamming_distance", "gmax_f_sub"),
+        ("jaccard_similarity", "gmax_jaccard"),
+        ("pearson_correlation", "gmax_f_sub"),
+    ],
+)
+def test_metric_db_on_card_matches_cpu(dev, monkeypatch, metric, kernel):
+    """The grouped metrics end to end, card against CPU. Hamming and
+    jaccard scores are exact; euclidean and pearson sum in another order."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    rng = np.random.default_rng(10)
+    v = (rng.standard_normal((16384, 384)) / np.sqrt(384)).astype(np.float16)
+    docs = [{"ts": float(i % 89) / 89.0} for i in range(16384)]
+    q = rng.standard_normal((512, 384)).astype(np.float32)
+    card = HyperDB(docs, v, fp_precision="float16", device=dev, metadata_keys=["ts"])
+    cpu = HyperDB(docs, v, fp_precision="float16", device="cpu", metadata_keys=["ts"])
+    exact = metric in ("hamming_distance", "jaccard_similarity")
+    before = dict(G.LAUNCHES)
+    gi, gv = card.query_batch_arrays(q, top_k=10, metric=metric)
+    assert G.LAUNCHES[kernel] == before[kernel] + 1
+    pi, pv = cpu.query_batch_arrays(q, top_k=10, metric=metric)
+    assert np.abs(gv - pv).max() <= (0.0 if exact else ATOL)
+    assert (gi == pi).all() if exact else (gi == pi).mean() > 0.99
+    # recency: the plain form on the card (pearson is dot: its kernel takes recency)
+    before = dict(G.LAUNCHES)
+    kw = {"recency_bias": 0.05, "timestamp_key": "ts"}
+    gi, gv = card.query_batch_arrays(q, top_k=10, metric=metric, **kw)
+    if metric != "pearson_correlation":
+        assert G.LAUNCHES == before
+    pi, pv = cpu.query_batch_arrays(q, top_k=10, metric=metric, **kw)
+    assert np.abs(gv - pv).max() <= ATOL and (gi == pi).mean() > 0.99

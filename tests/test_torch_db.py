@@ -201,8 +201,7 @@ def test_not_ported_branches_raise():
         db.save("x")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         db.add({"name": "x"}, vectors=np.zeros((2, D)))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TorchDB(docs, v, device="cpu", device_precision="int8")
+    assert TorchDB(docs, v, device="cpu", device_precision="int8")._store.precision == "int8"
     with pytest.raises(ValueError):
         TorchDB(docs, v, device="cpu", device_precision="int4")
 

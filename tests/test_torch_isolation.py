@@ -81,10 +81,48 @@ def test_wrappers_raise_without_kernel(no_kernel_library):
         G.gmax_f(q, v, extra)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         G.gmax_f_sub(q, v, extra)
+    q_sum = torch.empty((128, 1), dtype=torch.float32, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        G.gmax_jaccard(q, v, q_sum, extra, extra)
+    q8 = torch.empty((128, 128), dtype=torch.int8, device="meta")
+    v8 = torch.empty((1024, 128), dtype=torch.int8, device="meta")
+    q_scale = torch.empty((128,), dtype=torch.float32, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        G.gmax_int8(q8, q_scale, v8, extra, extra)
     assert G.LAUNCHES == before
+    assert set(G.LAUNCHES) == {"gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard"}
     # the same shapes on CPU tensors take the plain versions
     cpu = [torch.zeros(t.shape, dtype=t.dtype) for t in (q, v, extra)]
     assert G.gmax_f(*cpu).shape == (128, 8)
+    assert G.gmax_jaccard(cpu[0], cpu[1], torch.zeros(128, 1), cpu[2], cpu[2]).shape == (128, 8)
+    cpu8 = [torch.zeros(t.shape, dtype=t.dtype) for t in (q8, q_scale, v8)]
+    assert G.gmax_int8(*cpu8, cpu[2], cpu[2]).shape == (128, 8)
+    assert G.LAUNCHES == before
+
+
+def test_routes_raise_without_kernel(no_kernel_library, monkeypatch):
+    """The routes above the wrappers give way to nothing either: a tensor
+    that is not on the CPU reaches the kernel, and the failed build raises
+    through ``rank_top_k_int8`` and ``rank_top_k_grouped_metric``."""
+    from hyperdb_tpu_torch.ops import quantized as Q
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    monkeypatch.setattr(Q, "_EPILOGUE_BUDGET_BYTES", 1 << 10)
+    # meta tensors cannot be quantized or top-k'd: stand in for those steps
+    monkeypatch.setattr(
+        Q, "_quantize_device",
+        lambda x: (x.to(torch.int8), torch.empty((x.shape[0],), device=x.device)),
+    )
+    q = torch.empty((512, 128), dtype=torch.float32, device="meta")
+    v8 = torch.empty((8192, 128), dtype=torch.int8, device="meta")
+    scales = torch.empty((8192,), dtype=torch.float32, device="meta")
+    before = dict(G.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        Q.rank_top_k_int8(q, v8, scales, 10)
+    rows = torch.empty((8192, 128), dtype=torch.bfloat16, device="meta")
+    for metric in R.GROUPED_METRICS:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            R.rank_top_k_grouped_metric(q, rows, scales, 10, metric)
     assert G.LAUNCHES == before
 
 
@@ -97,7 +135,14 @@ def test_missing_library_file_raises(no_kernel_library, monkeypatch, tmp_path):
 
 
 def test_build_flags_and_sources():
+    # one source holds all four kernels (gmax_f_sub, gmax_f, gmax_int8,
+    # gmax_jaccard are instantiations of one template)
     assert cuda_build.sources() == ["gmax"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    # no fast-math: the jaccard division and the NaN scrub must be IEEE
+    assert not any("fast" in flag for flag in cuda_build.NVCC_FLAGS)
+    src = (cuda_build.CSRC / "gmax.cu").read_text()
+    for needle in ("m16n8k32.row.col.s32.s8.s8.s32", "__fmul_rn", "__fdiv_rn", "KIND_JACCARD"):
+        assert needle in src
     p = cuda_build.library_path("gmax")
     assert p.parent == cuda_build.BUILD_DIR and p.name.startswith("libgmax-")

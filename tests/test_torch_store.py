@@ -3,7 +3,9 @@
 Planes must be bit-equal: the port normalizes on the host exactly as the
 JAX package does (f32, zero norm -> 1) and casts f32 -> bf16 with
 round-to-nearest-even, as ml_dtypes does; bf16 planes are compared through
-a uint16 view.
+a uint16 view. The int8, binary and pearson views are built on the host
+with the same NumPy expressions in both packages and must be bit-equal too
+(NaN rows of the pearson plane compared as NaN, payloads aside).
 """
 
 import numpy as np
@@ -72,3 +74,62 @@ def test_host_view_matches_jax():
     ts.set(v)
     for key in ("rows", "rows_norm"):
         np.testing.assert_array_equal(ts.host_view()[key], js.host_view()[key])
+
+
+def _stores(dtype, precision, n=1000, d=48, seed=2):
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal((n, d)) * 3).astype(dtype)
+    v[7] = 0  # zero row: scale 0, popcount 0
+    v[8] = 2.5  # constant row: a NaN row of the pearson plane
+    js = JS.VectorStore(dtype, precision=precision)
+    ts = TS.VectorStore(dtype, precision=precision, device="cpu")
+    js.set(v)
+    ts.set(v)
+    return js, ts, list(range(n))
+
+
+@pytest.mark.parametrize("precision", ["int8", "int8-pure"])
+@pytest.mark.parametrize("dtype", [np.float16, np.float32])
+def test_int8_views_bit_equal(dtype, precision):
+    js, ts, src = _stores(dtype, precision)
+    jdv, tdv = js.device_view(src), ts.device_view(src)
+    for key, want in (("rows_q", torch.int8), ("rowsn_q", torch.int8),
+                      ("row_scales", torch.float32), ("rown_scales", torch.float32)):
+        assert tdv[key].dtype == want and tdv[key].shape[0] == 1024
+        np.testing.assert_array_equal(tdv[key].numpy(), np.asarray(jdv[key]))
+    assert tdv["row_scales"][7] == 0 and not tdv["rows_q"][7].any()
+    assert not tdv["rows_q"][1000:].any()  # padding rows quantize to zero
+    assert ts.low_precision_device and js.low_precision_device
+    if precision == "int8-pure":  # never holds float planes
+        for key in ("rows", "rows_norm"):
+            with pytest.raises(KeyError):
+                tdv[key]
+    else:
+        assert tdv["rows_norm"].shape == (1024, 48)
+
+
+@pytest.mark.parametrize("dtype", [np.float16, np.float32])
+def test_binary_and_pearson_views_bit_equal(dtype):
+    js, ts, src = _stores(dtype, "auto")
+    jbv, tbv = js.binary_view(src), ts.binary_view(src)
+    assert tbv["rows_bin"].dtype == torch.bfloat16  # whatever the master dtype
+    np.testing.assert_array_equal(
+        tbv["rows_bin"].view(torch.int16).numpy().view(np.uint16),
+        np.asarray(jbv["rows_bin"]).view(np.uint16),
+    )
+    np.testing.assert_array_equal(tbv["row_bin_sum"].numpy(), np.asarray(jbv["row_bin_sum"]))
+    assert ts.binary_view(src) is tbv and "rows_bin" in ts.device_view(src)
+
+    jpv, tpv = js.pearson_view(src), ts.pearson_view(src)
+    want = torch.bfloat16 if dtype == np.float16 else torch.float32
+    t = tpv["rows_pearson"]
+    assert t.dtype == want
+    j = np.asarray(jpv["rows_pearson"])
+    nan = np.isnan(j.astype(np.float32))
+    assert nan[[7, 8]].all() and nan.sum() == 96  # the constant rows, on purpose
+    np.testing.assert_array_equal(torch.isnan(t.float()).numpy(), nan)
+    t = t.view(torch.int16 if want == torch.bfloat16 else torch.int32).numpy()
+    np.testing.assert_array_equal(t.view(_bits(j).dtype)[~nan], _bits(j)[~nan])
+    assert ts.low_precision_device == (dtype == np.float16)
+    ts.append(np.ones(48))
+    assert "rows_pearson" not in ts.device_view(src + [1000])  # rebuilt after a mutation
