@@ -43,6 +43,28 @@ Phases, one or a few lines each on standard output:
    version at b = 1024 on the store's plane (masked group, masked rows,
    recency, zero-scale rows) and timed beside ``torch._int_mm`` + rescale +
    ``amax``.
+8. the manhattan kernels (``gmax_l1``, ``gmax_l1t``) against their plain
+   versions on the store's raw 2^20 x 384 bf16 plane at b = 64 and b = 512,
+   with masked rows, a masked group, a NaN corpus element and a NaN query.
+   Their d-sum order differs from torch's ``sum(-1)``, so they are held to
+   rtol 1e-5 plus atol 1e-4 on distances of magnitude ~430 (and to the same
+   rtol on the ~1e30 entries of the NaN query in ``gmax_l1t``); +-inf
+   positions must match exactly. Each is timed beside its bound (two FP32
+   operations per element on the CUDA cores), its plain version (timed
+   once: it takes seconds) and ``torch.cdist(p=1)`` + mask + group max;
+9. path C, manhattan through ``query_batch_arrays``: b = 64 and b = 512,
+   each with ``CONFIG.pallas_l1t`` = 1 (``gmax_l1t`` over a transposed
+   copy) and = 0 (``gmax_l1`` in place); b = 64 with recency and b = 8 (the
+   streamed scan, no launch). Ids tie-aware equal to an exact f32 reference
+   over the same bf16 plane, scores within 1e-8 (scores are ~2e-3; the
+   kernel route's and the reference's f32 distance sums differ by ~1e-4 in
+   ~430); and the kernel route's ids and scores against the streamed
+   route's on the same queries (``pallas_l1_min_batch`` = 0);
+10. path D, chunked: the same rows as 250000 documents of 4 rows each
+   (``HyperDB.from_state``; padded to 262144 documents over the 2^20-row
+   plane), cosine and manhattan at b = 64, with and
+   without a metadata filter; document ids tie-aware equal to a reference
+   that scores every row and takes each document's best.
 
 Then a JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
@@ -82,7 +104,14 @@ RECENCY_BIAS = 0.05
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# H100 SXM FP32 outside the tensor cores: 67 TFLOP/s counts a fused
+# multiply-add as two, so the CUDA cores run half that many lane-operations
+PEAK_FP32_OPS = 67e12 / 2
 GMAX_SOURCE = "hyperdb_tpu_torch/csrc/gmax.cu"
+L1_SOURCE = "hyperdb_tpu_torch/csrc/l1.cu"
+L1_RTOL, L1_ATOL = 1e-5, 1e-4  # group maxes of -L1: another d-sum order than torch's
+MANHATTAN_ATOL = 1e-8  # scores 1/(1 + L1) ~ 2e-3 from distances equal within ~1e-4 in ~430
+ROWS_PER_DOC = 4  # path D
 NEG_INF = float("-inf")
 
 
@@ -150,6 +179,40 @@ def scan_bound_ms(b: int, n: int, d: int, out_cols: int, kind: str = "bf16"):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def l1_bound_ms(b: int, n: int, d: int, corpus_bytes: int = 2):
+    """Least time for one stage-1 manhattan scan: two FP32 operations per
+    (query, row, depth) element (subtract; add with the |x| modifier) over
+    the CUDA cores' operation rate, or its bytes (f32 queries, the corpus,
+    extra, the (b, n/128) output) over the memory rate."""
+    t_ops = 2.0 * b * n * d / PEAK_FP32_OPS * 1e3
+    nbytes = 4.0 * b * d + corpus_bytes * n * d + 4.0 * n + 4.0 * b * (n // 128)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def l1_err(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Hold an L1 kernel's output to its plain version's: no NaN, +-inf in
+    the same places, the rest within ``L1_RTOL`` / ``L1_ATOL``. Returns the
+    max abs difference over the entries below 1e29 (a NaN query's entries in
+    ``gmax_l1t`` sit at ~1e30 and are held to the relative tolerance only)."""
+    if got.shape != want.shape or torch.isnan(got).any():
+        raise AssertionError(f"{name}: wrong shape or NaN in the kernel's output")
+    inf = torch.isinf(want)
+    if not torch.equal(torch.where(inf, want, torch.zeros_like(want)),
+                       torch.where(torch.isinf(got), got, torch.zeros_like(got))):
+        raise AssertionError(f"{name}: infinite entries differ between kernel and plain version")
+    fin = ~inf
+    g, w = got[fin], want[fin]
+    bad = (g - w).abs() > L1_ATOL + L1_RTOL * w.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} entries off the plain version beyond rtol {L1_RTOL} "
+            f"atol {L1_ATOL} (max abs {float((g - w).abs()[bad].max()):.3g})"
+        )
+    small = w.abs() < 1e29
+    return float((g[small] - w[small]).abs().max())
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """Max abs difference on finite entries; -inf positions must agree."""
     if got.shape != want.shape:
@@ -163,12 +226,16 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got[fin] - want[fin]).abs().max())
 
 
-def kernel_entry(name, replaces, err, kern, plain, lib, bound, reps=20):
+def kernel_entry(name, replaces, err, kern, plain, lib, bound, reps=20,
+                 source=GMAX_SOURCE, slow=False):
     """Time one kernel beside its plain version and its library call, and
-    make its entry of the ``kernels`` line. ``lib`` may be None."""
+    make its entry of the ``kernels`` line. ``lib`` may be None. ``slow``
+    times the plain version and the library call once each, with no
+    warm-up (they take seconds)."""
     ms = cuda_ms(kern, reps=reps)
-    plain_ms = cuda_ms(plain, reps=5, warmup=1)
-    lib_ms = None if lib is None else cuda_ms(lib, reps=5, warmup=1)
+    side_reps, side_warmup = (1, 0) if slow else (5, 1)
+    plain_ms = cuda_ms(plain, reps=side_reps, warmup=side_warmup)
+    lib_ms = None if lib is None else cuda_ms(lib, reps=side_reps, warmup=side_warmup)
     bound_ms, bound_by = bound
     lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
     log(
@@ -177,7 +244,7 @@ def kernel_entry(name, replaces, err, kern, plain, lib, bound, reps=20):
         f"bound/ms={bound_ms / ms:.3f}"
     )
     return {
-        "name": name, "route": "cuda", "source": GMAX_SOURCE, "replaces": replaces,
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
     }
@@ -367,6 +434,63 @@ def int8_reference(dv, q: np.ndarray, k: int) -> Reference:
         q_i8, dv["rowsn_q"], N_DOCS, k, f=lambda inter, a, qs: inter * (qs * a),
         aux=dv["rown_scales"], qconst=q_scale[:, None],
     )
+
+
+class DocReference:
+    """Exact top-k DOCUMENTS by a full scan in f32, independent of the
+    routes: every row of the plane is scored, a document's score is the
+    best of its ``per_doc`` consecutive rows (1: rows are documents), then
+    recency and the document mask, then a stable descending sort (ties to
+    the lower id). It has :class:`Reference`'s interface for
+    :func:`check_top_k`.
+
+    ``metric`` is "manhattan" (``1/(1 + sum|v - q|)`` against the f32
+    queries) or "cosine" (the dot with the query normalized in f32 and
+    rounded to the plane's dtype, as the route multiplies it)."""
+
+    def __init__(self, metric, q, rows, n_docs, k, per_doc=1, doc_mask=None, rec=None):
+        self.metric, self.rows, self.n, self.per_doc, self.rec = metric, rows, n_docs, per_doc, rec
+        qt = torch.from_numpy(np.asarray(q, dtype=np.float32)).cuda()
+        if metric == "cosine":
+            norm = torch.sqrt((qt * qt).sum(-1, keepdim=True))
+            qt = (qt / torch.where(norm == 0, torch.ones_like(norm), norm)).to(rows.dtype).float()
+        self.q = qt
+        n_rows = n_docs * per_doc
+        vals, ids = [], []
+        for a in range(0, qt.shape[0], 64):
+            qc = qt[a : a + 64]
+            if metric == "cosine":
+                s = qc @ rows[:n_rows].float().T
+            else:
+                s = torch.cat(
+                    [self._pairs(qc[:, None, :], rows[r : r + 8192].float()[None])
+                     for r in range(0, n_rows, 8192)], dim=1,
+                )[:, :n_rows]
+            s = s.masked_fill(torch.isnan(s), NEG_INF)
+            s = s.view(s.shape[0], n_docs, per_doc).amax(-1)
+            if rec is not None:
+                s = s + rec[None, :n_docs]
+            if doc_mask is not None:
+                s = s.masked_fill(~doc_mask[None, :], NEG_INF)
+            sv, si = torch.sort(s, dim=-1, descending=True, stable=True)
+            vals.append(sv[:, :k])
+            ids.append(si[:, :k])
+        self.vals, self.ids = torch.cat(vals), torch.cat(ids)
+
+    def _pairs(self, q, r):
+        """Scores of broadcastable (.., d) queries and rows -> (..)."""
+        if self.metric == "cosine":
+            return (r * q).sum(-1)
+        return 1.0 / (1.0 + (r - q).abs().sum(-1))
+
+    def exact(self, ids: torch.Tensor, queries=None) -> torch.Tensor:
+        qq = self.q if queries is None else self.q[queries]
+        rows_of = ids[..., None] * self.per_doc + torch.arange(self.per_doc, device=ids.device)
+        r = self.rows[rows_of].float()  # (.., per_doc, d)
+        q = qq.view(qq.shape[0], *([1] * (r.ndim - 2)), qq.shape[1])
+        s = self._pairs(q, r)
+        s = s.masked_fill(torch.isnan(s), NEG_INF).amax(-1)
+        return s if self.rec is None else s + self.rec[ids]
 
 
 # ---------------------------------------------------------------- phases
@@ -582,30 +706,38 @@ def log_breakdown(label, parts, wall, card):
     )
 
 
-def stage_breakdown(db, q: np.ndarray, wall: float, card: str) -> None:
+def stage_breakdown(db, q: np.ndarray, wall: float, card: str, pearson: bool = False) -> None:
     """Device time of each stage of one main-path batch (the functions the
     route calls, on the same inputs), beside the batch's host-clock time;
-    the difference is host work and transfers."""
+    the difference is host work and transfers. ``pearson``: the same dot
+    route over the centered plane (the queries are centered on the host in
+    NumPy, so there is no device pre-step)."""
     from hyperdb_tpu_torch.ops import gmax as G
     from hyperdb_tpu_torch.ops import metrics as M
 
     dv = db._store.device_view(db.source_indices)
-    plane, n = dv["rows_norm"], dv["n_pad"]
+    n = dv["n_pad"]
     b, k = q.shape[0], 16  # k padded to a power of two, as the engine does
-    qt = torch.from_numpy(q).cuda()
-    qq = M._match_low_precision(M.normalize(qt), plane)
+    parts = {}
+    if pearson:
+        plane = db._store.pearson_view(db.source_indices)["rows_pearson"]
+        qq = torch.from_numpy(M.pearson_center_normalize(q.astype(np.float32))).cuda().to(plane.dtype)
+    else:
+        plane = dv["rows_norm"]
+        qt = torch.from_numpy(q).cuda()
+        qq = M._match_low_precision(M.normalize(qt), plane)
+        parts["normalize"] = cuda_ms(lambda: M._match_low_precision(M.normalize(qt), plane), 3, 1)
     extra = G.make_extra(n, dv["row_valid"], None, device=plane.device)
     gm, sm = G.gmax_f_sub(qq, plane, extra, sub=SUB, dual=False)
     sidx = G._select_subgroups(gm, sm, b, n, k, SUB)
     cs = G._rescore(qq, plane, extra, sidx, SUB)
-    parts = {
-        "normalize": cuda_ms(lambda: M._match_low_precision(M.normalize(qt), plane), 3, 1),
+    parts.update({
         "stage1": cuda_ms(lambda: G.gmax_f_sub(qq, plane, extra, sub=SUB, dual=False), 3, 1),
         "stage2": cuda_ms(lambda: G._select_subgroups(gm, sm, b, n, k, SUB), 3, 1),
         "stage3_rescore": cuda_ms(lambda: G._rescore(qq, plane, extra, sidx, SUB), 3, 1),
         "stage3_topk": cuda_ms(lambda: G.finish_candidates(cs, sidx, b, k, SUB), 3, 1),
-    }
-    log_breakdown(f"cosine b={b}", parts, wall, card)
+    })
+    log_breakdown(f"{'pearson' if pearson else 'cosine'} b={b}", parts, wall, card)
 
 
 def stage_breakdown_metric(db, metric: str, q: np.ndarray, wall: float, card: str) -> None:
@@ -727,7 +859,9 @@ def path_metrics(db, corpus, kernels, seed: int, card: str) -> None:
             f"the plain reference ({swaps} tied swaps, score err {err:.3g}, tol {atol})"
         )
         wall = run_batch(db, q, f"path B {metric}", card, metric=metric)
-        if metric != "pearson_correlation":
+        if metric == "pearson_correlation":
+            stage_breakdown(db, q, wall, card, pearson=True)
+        else:
             stage_breakdown_metric(db, metric, q, wall, card)
 
         zero_launches(G)
@@ -838,6 +972,256 @@ def path_int8(docs, corpus, kernels, plane_bf16, seed: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_kernels_l1(rows: torch.Tensor, n: int, seed: int, card: str):
+    """``gmax_l1`` and ``gmax_l1t`` against their plain versions on the
+    store's raw plane at b = 64 and b = 512. Returns their entries of the
+    ``kernels`` line, at b = 512."""
+    from hyperdb_tpu_torch.ops import l1 as L
+
+    n_pad = rows.shape[0]
+    g = n_pad // L.GROUP
+    v = rows.clone()
+    v[300] = v[40]  # a tie across groups
+    v[777, 5] = float("nan")  # a NaN corpus element sinks its row only
+    extra = kernel_masks(n_pad, n, seed + 51, recency=False)  # ~10% masked, group 1 whole
+    vt = v.t().contiguous()
+    v32 = v.float()
+    dead = torch.isinf(extra)
+    results = {}
+    log(f"manhattan kernels at n={n_pad} d={DIM} {v.dtype} (rtol {L1_RTOL}, atol {L1_ATOL}):")
+    for b in (64, 512):
+        q = torch.from_numpy(
+            np.random.default_rng(seed + 52 + b).standard_normal((b, DIM), dtype=np.float32)
+        ).cuda()
+        q[3, 7] = float("nan")  # a NaN query: every group bottoms out
+        got, got_t = L.gmax_l1(q, v, extra), L.gmax_l1t(q, vt, extra)
+        torch.cuda.synchronize()
+        want, want_t = L.gmax_l1_plain(q, v, extra), L.gmax_l1t_plain(q, vt, extra)
+        err, err_t = l1_err("gmax_l1", got, want), l1_err("gmax_l1t", got_t, want_t)
+        keep = torch.ones(b, dtype=torch.bool, device=q.device)
+        keep[3] = False
+        err_both = l1_err("gmax_l1 against -gmax_l1t", got[keep], -got_t[keep])
+        if not (
+            torch.isneginf(got[:, 1]).all() and torch.isposinf(got_t[:, 1]).all()
+            and torch.isneginf(got[3]).all() and (got_t[3] >= 1e29).all()
+            and torch.isfinite(got[0, 6]) and torch.isfinite(got_t[0, 6])  # row 777's group
+        ):
+            raise AssertionError("L1 kernels: masked group / NaN element / NaN query are off")
+        log(f"b={b}: the two contracts agree after negation within {err_both:.3g}")
+        del want, want_t, got, got_t
+
+        def lib_l1():
+            return (extra - torch.cdist(q, v32, p=1)).view(b, g, L.GROUP).amax(-1)
+
+        def lib_l1t():
+            dist = torch.cdist(q, vt.float().t(), p=1).masked_fill_(dead[None, :], float("inf"))
+            return dist.view(b, g, L.GROUP).amin(-1)
+
+        try:  # the yardstick only: the port never calls it
+            lib_l1()
+        except RuntimeError as e:
+            log(f"library call torch.cdist not usable here ({str(e).splitlines()[0]})")
+            lib_l1 = lib_l1t = None
+        entries = {
+            "gmax_l1": kernel_entry(
+                f"gmax_l1 b={b}", "hyperdb_tpu/ops/pallas_l1.py:163", err,
+                lambda: L.gmax_l1(q, v, extra), lambda: L.gmax_l1_plain(q, v, extra),
+                lib_l1, l1_bound_ms(b, n_pad, DIM, v.element_size()),
+                reps=10, source=L1_SOURCE, slow=True,
+            ),
+            "gmax_l1t": kernel_entry(
+                f"gmax_l1t b={b}", "hyperdb_tpu/ops/pallas_l1.py:322", err_t,
+                lambda: L.gmax_l1t(q, vt, extra), lambda: L.gmax_l1t_plain(q, vt, extra),
+                lib_l1t, l1_bound_ms(b, n_pad, DIM, v.element_size()),
+                reps=10, source=L1_SOURCE, slow=True,
+            ),
+        }
+        for name, entry in entries.items():
+            entry["name"] = name
+            results[name] = entry  # the b = 512 entries stay
+    log(f"transpose of the {tuple(v.shape)} plane: {cuda_ms(lambda: v.t().contiguous(), 5, 1):.4f} ms "
+        f"[{card}]")
+    del v, vt, v32
+    torch.cuda.empty_cache()
+    return results
+
+
+def stage_breakdown_l1(db, q: np.ndarray, wall: float, card: str, l1t: int) -> None:
+    """Device time of each stage of one manhattan batch on its kernel route
+    (the functions the route calls, on the same inputs)."""
+    from hyperdb_tpu_torch.ops import l1 as L
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    dv = db._store.device_view(db.source_indices)
+    rows, n = dv["rows"], dv["n_pad"]
+    b, k = q.shape[0], 16
+    q32 = torch.from_numpy(q).cuda()
+    extra = L.make_extra(n, dv["row_valid"], device=rows.device)
+    parts = {"mask_extra": cuda_ms(lambda: L.make_extra(n, dv["row_valid"], device=rows.device), 3, 1)}
+    if l1t:
+        vt = rows.t().contiguous()
+        parts["transpose"] = cuda_ms(lambda: rows.t().contiguous(), 3, 1)
+        stage1 = lambda: -L.gmax_l1t(q32, vt, extra)  # noqa: E731
+    else:
+        stage1 = lambda: L.gmax_l1(q32, rows, extra)  # noqa: E731
+    gm = stage1()
+    m = min(k + L.L1_GROUP_MARGIN, n // L.GROUP)
+    gidx = R.exact_top_k(gm, m)[1]
+    parts["stage1"] = cuda_ms(stage1, 3, 1)
+    parts["stage2"] = cuda_ms(lambda: R.exact_top_k(gm, m), 3, 1)
+    parts["stage3"] = cuda_ms(lambda: L._rescore_groups(q32, rows, gidx, k, dv["row_valid"]), 3, 1)
+    log_breakdown(f"manhattan b={b} pallas_l1t={l1t}", parts, wall, card)
+
+
+def path_manhattan(db, corpus, kernels, seed: int, card: str) -> None:
+    """Path C: manhattan over the 1M-row corpus through the entry point."""
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.ops import l1 as L
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    dv = db._store.device_view(db.source_indices)
+    rows, n_pad = dv["rows"], dv["n_pad"]
+    queries = {b: make_queries(seed + 60 + b, b, corpus) for b in (8, 64, 512)}
+    refs = {b: DocReference("manhattan", q, rows, N_DOCS, TOP_K) for b, q in queries.items()}
+    knob_t, knob_b = CONFIG.pallas_l1t, CONFIG.pallas_l1_min_batch
+    results = {}
+    zero_launches(L)
+    try:
+        for b in (64, 512):
+            for l1t in (1, 0):
+                CONFIG.pallas_l1t = l1t
+                before = dict(L.LAUNCHES)
+                ids, vals = db.query_batch_arrays(
+                    queries[b], top_k=TOP_K, metric="manhattan_distance"
+                )
+                name = "gmax_l1t" if l1t else "gmax_l1"
+                other = "gmax_l1" if l1t else "gmax_l1t"
+                if L.LAUNCHES[name] != before[name] + 1 or L.LAUNCHES[other] != before[other]:
+                    raise AssertionError(f"manhattan b={b} pallas_l1t={l1t}: launched {L.LAUNCHES}")
+                swaps, err = check_top_k(
+                    f"manhattan b={b} l1t={l1t}", ids, vals, refs[b], MANHATTAN_ATOL
+                )
+                if list(ids[0, :2]) != [4, 17]:
+                    raise AssertionError(f"manhattan: duplicate rows 4/17 not first: {ids[0, :2]}")
+                log(f"path C manhattan b={b} pallas_l1t={l1t} ({name}): ids tie-aware equal to the "
+                    f"exact reference ({swaps} tied swaps, score err {err:.3g}, tol {MANHATTAN_ATOL})")
+                results[b, l1t] = (ids, vals)
+        launches = dict(L.LAUNCHES)
+        log(f"path C launches: {json.dumps(launches)}")
+        if launches != {"gmax_l1": 2, "gmax_l1t": 2}:
+            raise AssertionError(f"path C: expected two launches of each kernel, got {launches}")
+        for name in launches:
+            kernels[name]["launches"] = launches[name]
+
+        # the streamed route: recency, a small batch, and the same queries
+        # with the kernel route switched off
+        CONFIG.pallas_l1t = knob_t
+        kw = {"recency_bias": RECENCY_BIAS, "timestamp_key": "ts"}
+        ids, vals = db.query_batch_arrays(queries[64], top_k=TOP_K, metric="manhattan_distance", **kw)
+        ref = DocReference("manhattan", queries[64], rows, N_DOCS, TOP_K, rec=recency_vector(n_pad))
+        # the recency term (up to 0.05) is added in f32: an ulp there is 3.7e-9
+        swaps, err = check_top_k("manhattan b=64 recency", ids, vals, ref, 2 * MANHATTAN_ATOL)
+        log(f"path C manhattan b=64 with recency (streamed, no launch): ids tie-aware equal "
+            f"({swaps} tied swaps, score err {err:.3g})")
+        del ref
+        ids, vals = db.query_batch_arrays(queries[8], top_k=TOP_K, metric="manhattan_distance")
+        swaps, err = check_top_k("manhattan b=8", ids, vals, refs[8], MANHATTAN_ATOL)
+        log(f"path C manhattan b=8 (streamed, no launch): ids tie-aware equal "
+            f"({swaps} tied swaps, score err {err:.3g})")
+        CONFIG.pallas_l1_min_batch = 0
+        for b in (64, 512):
+            sids, svals = db.query_batch_arrays(queries[b], top_k=TOP_K, metric="manhattan_distance")
+            check_top_k(f"manhattan b={b} streamed", sids, svals, refs[b], MANHATTAN_ATOL)
+            for l1t in (1, 0):
+                kids, kvals = results[b, l1t]
+                differ = kids != sids
+                gap = float(np.abs(kvals - svals).max())
+                if differ.any() and float(np.abs(kvals - svals)[differ].max()) > MANHATTAN_ATOL:
+                    raise AssertionError(
+                        f"manhattan b={b} l1t={l1t}: kernel and streamed routes return different ids"
+                    )
+                if gap > MANHATTAN_ATOL:
+                    raise AssertionError(f"manhattan b={b}: routes' scores differ by {gap:.3g}")
+                log(f"path C manhattan b={b} pallas_l1t={l1t}: kernel route against streamed "
+                    f"route: {int(differ.sum())} ids differ, max score difference {gap:.3g}, "
+                    f"bit-identical scores: {bool(np.array_equal(kvals, svals))}")
+        CONFIG.pallas_l1_min_batch = knob_b
+        if L.LAUNCHES != launches:
+            raise AssertionError(f"the streamed route launched a kernel: {L.LAUNCHES}")
+        del refs
+
+        for b in (64, 512):
+            for l1t in (1, 0):
+                CONFIG.pallas_l1t = l1t
+                wall = run_batch(db, queries[b], f"path C manhattan pallas_l1t={l1t}", card,
+                                 metric="manhattan_distance")
+                stage_breakdown_l1(db, queries[b], wall, card, l1t)
+        CONFIG.pallas_l1t = knob_t
+        rec = recency_vector(n_pad)
+        for b, label, rkw, r in ((64, "streamed, recency", kw, rec), (8, "streamed", {}, None)):
+            wall = run_batch(db, queries[b], f"path C manhattan {label}", card,
+                             metric="manhattan_distance", **rkw)
+            qt = torch.from_numpy(queries[b]).cuda()
+            scan = cuda_ms(lambda: R.rank_top_k(
+                qt, rows, 16, metric="manhattan_distance", row_mask=dv["row_valid"], recency=r
+            ), 2, 1)
+            log_breakdown(f"manhattan b={b} {label}", {"scan": scan}, wall, card)
+        CONFIG.pallas_l1_min_batch = 0
+        run_batch(db, queries[64], "path C manhattan streamed", card, metric="manhattan_distance")
+    finally:
+        CONFIG.pallas_l1t, CONFIG.pallas_l1_min_batch = knob_t, knob_b
+    torch.cuda.empty_cache()
+
+
+def path_chunked(corpus, seed: int, card: str) -> None:
+    """Path D: the corpus as documents of 4 rows each, through the chunked
+    doc-level branch."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops import l1 as L
+
+    n_docs = N_DOCS // ROWS_PER_DOC
+    t = time.perf_counter()
+    db = HyperDB.from_state({
+        "vectors": corpus[: n_docs * ROWS_PER_DOC],
+        "documents": [{"grp": "ab"[i % 2]} for i in range(n_docs)],
+        "source_indices": np.repeat(np.arange(n_docs), ROWS_PER_DOC),
+        "metadata_keys": ["grp"], "fp_precision": np.float16, "ann_metric": "cosine",
+    })
+    dv = db._store.device_view(db.source_indices)
+    torch.cuda.synchronize()
+    if db.size() != n_docs or db.size(with_chunks=True) != n_docs * ROWS_PER_DOC:
+        raise AssertionError("chunked db: wrong document or row count")
+    log(f"chunked db build: {n_docs} documents x {ROWS_PER_DOC} rows, {time.perf_counter() - t:.1f} s")
+    q = make_queries(seed + 70, 64, corpus)
+    grp_a = torch.from_numpy(np.arange(n_docs) % 2 == 0).cuda()
+    zero_launches(G)
+    zero_launches(L)
+    for metric, kind, plane, atol in (
+        ("cosine_similarity", "cosine", "rows_norm", ATOL),
+        ("manhattan_distance", "manhattan", "rows", MANHATTAN_ATOL),
+    ):
+        for label, kw, mask in (
+            ("no filter", {}, None),
+            ("metadata filter", {"filters": [("metadata", {"grp": "a"})]}, grp_a),
+        ):
+            ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric=metric, **kw)
+            ref = DocReference(kind, q, dv[plane], n_docs, TOP_K, per_doc=ROWS_PER_DOC, doc_mask=mask)
+            swaps, err = check_top_k(f"chunked {metric} {label}", ids, vals, ref, atol)
+            if mask is not None and (ids % 2).any():
+                raise AssertionError(f"chunked {metric}: the filter let a masked document through")
+            if list(ids[0, :2]) != [4 // ROWS_PER_DOC, 17 // ROWS_PER_DOC] and mask is None:
+                raise AssertionError(f"chunked {metric}: rows 4 and 17's documents not first: {ids[0, :2]}")
+            log(f"path D chunked {metric}, {label}: document ids tie-aware equal to the row-scan "
+                f"reference ({swaps} tied swaps, score err {err:.3g}, tol {atol})")
+            del ref
+            run_batch(db, q, f"path D chunked {metric}, {label}", card, metric=metric, **kw)
+    if any(G.LAUNCHES.values()) or any(L.LAUNCHES.values()):
+        raise AssertionError("the chunked branch launched a kernel")
+    del db, dv
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -933,6 +1317,11 @@ def main() -> int:
     log(f"binary view build: {time.perf_counter() - t:.1f} s")
     kernels["gmax_jaccard"] = phase_kernel_jaccard(bv["rows_bin"], bv["row_bin_sum"], args.seed)
     path_metrics(db, corpus, kernels, args.seed, card)
+
+    # 8-9. the manhattan kernels on the raw plane, then path C
+    kernels.update(phase_kernels_l1(dv["rows"], N_DOCS, args.seed, card))
+    path_manhattan(db, corpus, kernels, args.seed, card)
+
     # the planes path A needs no more: keep only the cosine plane for its recall check
     for key in ("rows", "rows_bin", "row_bin_sum", "rows_pearson"):
         dv.pop(key, None)
@@ -941,8 +1330,13 @@ def main() -> int:
 
     # 7. path A: int8 planes
     path_int8(docs, corpus, kernels, plane, args.seed, card)
+    del db, dv, plane
+    torch.cuda.empty_cache()
 
-    names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard")
+    # 10. path D: the chunked doc-level branch
+    path_chunked(corpus, args.seed, card)
+
+    names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard", "gmax_l1", "gmax_l1t")
     for name in names:
         if kernels[name]["launches"] < 1:
             raise AssertionError(f"{name} was never launched through HyperDB")

@@ -35,6 +35,15 @@ class EngineConfig:
     pallas_gmax_f_min_batch: int = _env_int(
         "HYPERDB_PALLAS_GMAX_F_MIN_BATCH", 512
     )
+    # Minimum query-batch height before large-corpus manhattan scans route
+    # stage 1 through the L1 kernels (ops/l1.py) instead of the streamed
+    # scan. 0 disables the kernel route.
+    pallas_l1_min_batch: int = _env_int("HYPERDB_PALLAS_L1_MIN_BATCH", 64)
+    # 1: stage 1 of the manhattan kernel route scans a transposed (d, N)
+    # copy of the corpus (gmax_l1t), made once per call, while the corpus
+    # stays under ops/l1._L1T_MAX_BYTES; 0: the in-place kernel (gmax_l1)
+    # everywhere.
+    pallas_l1t: int = _env_int("HYPERDB_PALLAS_L1T", 1)
     # Subgroup width of the two-level selection (gmax_f_sub): stage 1 emits
     # per-SUB-row maxes, selection narrows top-k groups to top-k subgroups,
     # and stage 3 rescores only (B, k, SUB, d) rows. Must divide 128 and be

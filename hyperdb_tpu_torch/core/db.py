@@ -1,14 +1,16 @@
 """HyperDB — the public DB facade of the PyTorch/CUDA port.
 
 Counterpart of ``hyperdb_tpu/core/db.py`` for the precomputed-vectors
-surface: the constructor, ``add(documents, vectors=...)``, ``query``,
+surface: the constructor, ``add(documents, vectors=...)`` (one document
+may bring several rows: a chunked corpus), ``remove_document``, ``query``,
 ``query_batch``, ``query_batch_arrays``, ``size``, ``dict`` and ``stats``.
 The host keeps the documents and bookkeeping; scoring runs on ``device``
-(``"cuda"`` unless the caller asks for ``"cpu"``). Text embedding,
-chunking, persistence, IVF and projscan raise ``NotImplementedError`` until
-their slices (ROADMAP.md queue 1). ``device_precision`` selects the device
-planes: ``"auto"``, ``"int8"`` (int8 scan, exact rescore against the float
-plane) or ``"int8-pure"`` (int8 planes only; dot and cosine).
+(``"cuda"`` unless the caller asks for ``"cpu"``). Text embedding (and the
+text chunker with it), persistence, IVF and projscan raise
+``NotImplementedError`` until their slices (ROADMAP.md queue 1).
+``device_precision`` selects the device planes: ``"auto"``, ``"int8"``
+(int8 scan, exact rescore against the float plane) or ``"int8-pure"``
+(int8 planes only; dot and cosine).
 """
 
 from __future__ import annotations
@@ -321,13 +323,34 @@ class HyperDB:
                 [self.filter_document(d) for d in documents], vectors, add_timestamp
             )
         else:
-            rows = np.asarray(vectors, dtype=self.fp_precision)
-            if rows.ndim == 1:
-                rows = rows[None, :]
-            if rows.shape[0] != 1:
-                _not_ported("several rows for one document (chunking)", "item 3")
-            self.add_documents([self.filter_document(documents)], rows, add_timestamp)
+            self.add_document(
+                self.filter_document(documents), vectors, add_timestamp=add_timestamp
+            )
+            self.commit_pending()
+            self._build_ann_index()
         self.lru_cache.clear()
+
+    def add_document(
+        self, document, vectors, count: int = 1, add_timestamp: bool = False
+    ) -> None:
+        """Stage a single document with its (c, d) block of rows, one row
+        per chunk (reference hyperdb.py:568-626). :meth:`commit_pending`
+        applies the staged state."""
+        if not document:
+            return
+        if isinstance(document, dict) and add_timestamp:
+            document.setdefault("metadata", {})["timestamp"] = float(
+                datetime.datetime.now().timestamp()
+            )
+        rows = np.asarray(vectors, dtype=self.fp_precision)
+        if rows.ndim == 1:
+            rows = rows[None, :]
+        self.validate_vector_uniformity(rows)
+        for _ in range(count):
+            doc_index = len(self.documents) + len(self.pending_documents)
+            self.pending_documents.append(document)
+            self.pending_vectors.append(rows)
+            self.pending_source_indices.extend([doc_index] * int(rows.shape[0]))
 
     def add_documents(self, documents, vectors, add_timestamp: bool = False) -> None:
         """Transactional batch add (reference hyperdb.py:628-689): stage one
@@ -366,12 +389,15 @@ class HyperDB:
         """Apply staged documents/vectors (reference hyperdb.py:496-545)."""
         if not self.pending_vectors:
             return
+        rows = np.concatenate(self.pending_vectors, axis=0)
+        if rows.shape[0] != len(self.pending_source_indices):
+            raise ValueError("Inconsistency detected in new source indices.")
         start = len(self.documents)
         staged_metadata = [
             (start + offset, self._compute_metadata(document, start + offset))
             for offset, document in enumerate(self.pending_documents)
         ]
-        self._store.append(np.concatenate(self.pending_vectors, axis=0))
+        self._store.append(rows)
         self.source_indices.extend(self.pending_source_indices)
         self.documents.extend(self.pending_documents)
         for unique_index, metadata in staged_metadata:
@@ -381,6 +407,60 @@ class HyperDB:
         self.pending_documents.clear()
         self.pending_source_indices.clear()
         self._on_mutation()
+
+    # ------------------------------------------------------------------
+    # delete
+    # ------------------------------------------------------------------
+
+    def remove_document(self, indices) -> None:
+        """Remove documents by index (reference hyperdb.py:692-766), with
+        every row of theirs (derived from ``source_indices``); the documents
+        that remain are renumbered in ``source_indices``, ``split_info`` and
+        the metadata index."""
+        if isinstance(indices, int):
+            indices = [indices]
+        num_docs = len(self.documents)
+        normalized = []
+        for i in indices:
+            i = int(i)
+            if i < 0:  # python-list semantics: -1 is the last document
+                i += num_docs
+            if not 0 <= i < num_docs:
+                raise IndexError(f"document index {i} out of range (0..{num_docs - 1})")
+            normalized.append(i)
+        removed = sorted(set(normalized))
+        removed_set = set(removed)
+
+        rows_to_remove = [
+            r for r, src in enumerate(self.source_indices) if src in removed_set
+        ]
+        for idx in reversed(removed):
+            self.documents.pop(idx)
+        if self.vectors is not None and rows_to_remove:
+            self._store.delete_rows(rows_to_remove)
+
+        removed_arr = np.asarray(removed, dtype=np.int64)
+
+        def shift(i: int) -> int:
+            return int(np.searchsorted(removed_arr, i, side="left"))
+
+        self.source_indices = [
+            src - shift(src) for src in self.source_indices if src not in removed_set
+        ]
+        self.split_info = {
+            idx - shift(idx): count
+            for idx, count in self.split_info.items()
+            if idx not in removed_set
+        }
+        self._metadata_index = {
+            idx - shift(idx): meta
+            for idx, meta in self._metadata_index.items()
+            if idx not in removed_set
+        }
+        # removals renumber row ids: rebuild the index, do not patch it
+        self._on_mutation()
+        self._build_ann_index()
+        self.clear_cache()
 
     # ------------------------------------------------------------------
     # introspection

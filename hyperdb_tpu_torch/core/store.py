@@ -123,6 +123,14 @@ class VectorStore:
             self.vectors = np.concatenate([self.vectors, rows], axis=0)
         self.invalidate()
 
+    def delete_rows(self, row_indices) -> None:
+        if self.vectors is None:
+            return
+        keep = np.ones(self.vectors.shape[0], dtype=bool)
+        keep[np.asarray(list(row_indices), dtype=np.int64)] = False
+        self.vectors = self.vectors[keep]
+        self.invalidate()
+
     def invalidate(self) -> None:
         self._device = None
         self._host = None

@@ -3,9 +3,12 @@
 Counterpart of ``hyperdb_tpu/ops/ranking.py`` for the routes ported so far:
 the router :func:`rank_top_k`, the plain grouped form
 :func:`rank_top_k_grouped`, the grouped euclidean/hamming/jaccard form
-:func:`rank_top_k_grouped_metric`, and the materialising fallback over the
-seven metrics. Batches at or above ``CONFIG.pallas_gmax_f_min_batch`` over
-a bf16 plane go to the stage-1 kernels (``ops/gmax.py``).
+:func:`rank_top_k_grouped_metric`, the streamed manhattan scan
+:func:`rank_top_k_manhattan_stream`, the chunk-aware document ranking
+:func:`rank_docs_top_k`, and the materialising fallback over the seven
+metrics. Batches at or above ``CONFIG.pallas_gmax_f_min_batch`` over a bf16
+plane go to the stage-1 kernels (``ops/gmax.py``); manhattan batches at or
+above ``CONFIG.pallas_l1_min_batch`` to the L1 kernels (``ops/l1.py``).
 
 Semantics kept from the reference ranker (ranking_algorithm.py:149-204):
 NaN scores become -inf before recency is added; masks act as an additive
@@ -98,8 +101,9 @@ def gather_dot(queries, rows, cidx, width: int):
 
 
 def finish_candidates(cs, sidx, b: int, k: int, width: int):
-    """Final top-k over (B, k, width) rescored candidates -> global row ids."""
-    vals, pos = exact_top_k(cs.reshape(b, k * width), k)
+    """Final top-k over (B, m, width) rescored candidates of the (B, m >= k)
+    runs ``sidx`` -> global row ids."""
+    vals, pos = exact_top_k(cs.reshape(b, -1), k)
     winner = torch.gather(sidx, 1, pos // width)
     return vals, winner * width + pos % width
 
@@ -133,6 +137,87 @@ def rank_top_k_grouped(
     if n % group or n <= k * group:
         return exact_top_k(s, k)
     return exact_top_k_grouped(s, k, group=group)
+
+
+def _manhattan_tile(batch: int, n: int, k: int = 1) -> int:
+    """Row tile of the streamed manhattan scan (0 = no valid tile): the JAX
+    package's arithmetic, because the tile decides routing.
+
+    ``batch * tile <= 2^22`` score cells, a power of two that divides ``n``
+    with at least two tiles, and at least ``k`` rows (the stream seeds its
+    carry from tile 0). Odd row counts have no tile and take the
+    materialising form."""
+    floor = max(512, 1 << max(0, (min(k, n) - 1)).bit_length())
+    cap = max(floor, min(8192, (1 << 22) // max(batch, 1)))
+    tile = 1 << (cap.bit_length() - 1)  # round down to a power of two
+    while tile >= floor and n % tile:
+        tile //= 2
+    return tile if tile >= floor and n % tile == 0 and n // tile >= 2 else 0
+
+
+def manhattan_block_scores(q32, rows):
+    """``1/(1 + sum_d |v - q|)`` with NaN -> -inf, in f32.
+
+    ``q32`` is a (c, d) f32 query chunk; ``rows`` is one (r, d) block shared
+    by the chunk's queries or a (c, r, d) block of per-query candidates.
+    Returns (c, r). The streamed scan's tiles and the kernel route's stage-3
+    rescore both score through this one expression, over a contiguous
+    (c, r, d) difference, so a row gets the same bits from either."""
+    r32 = rows.float()
+    if r32.ndim == 2:
+        r32 = r32[None]
+    dist = (r32 - q32[:, None, :]).abs_().sum(-1)
+    s = 1.0 / (1.0 + dist)
+    return s.masked_fill_(torch.isnan(s), NEG_INF)
+
+
+def rank_top_k_manhattan_stream(
+    queries, vectors, k: int, row_mask=None, recency=None, tile: int = 2048
+):
+    """Streamed manhattan top-k: the (B, N) score matrix never exists
+    (``ranking.rank_top_k_manhattan_stream`` in the JAX package).
+
+    The corpus goes by in row tiles; a (B, k) carry holds the running exact
+    top-k. Per tile: ``1/(1 + L1)``, NaN -> -inf, ``+ recency``, the mask,
+    then one :func:`exact_top_k` over ``[carry | tile scores]``. The carry
+    is seeded from tile 0's real scores (so -inf entries carry true row
+    ids), always holds rows of earlier tiles, and sits LEFT of the tile in
+    the merge; ``exact_top_k`` prefers the lower position, so ties go to
+    the lower row id exactly as one top-k over the full matrix would.
+    Needs ``tile | n`` and ``k <= tile`` (:func:`_manhattan_tile` gives
+    both). Eager torch materialises the (c, tile, d) difference of a tile,
+    so each tile is scored a chunk of queries at a time; the tile, and so
+    the routing, is the JAX package's."""
+    b = queries.shape[0]
+    n, d = vectors.shape
+    if n % tile:
+        raise ValueError(f"tile ({tile}) must divide corpus rows ({n})")
+    k_eff = min(k, n)
+    if k_eff > tile:
+        raise ValueError(f"k ({k_eff}) must be <= tile ({tile})")
+    q32 = queries.float()
+    rec32 = None if recency is None else recency.float()
+    chunk = max(1, _CHUNK_CELLS // (tile * d))
+    base = torch.arange(tile, device=vectors.device)
+    cv = ci = None
+    for t in range(n // tile):
+        rows = slice(t * tile, (t + 1) * tile)
+        vb = vectors[rows]
+        s = torch.cat(
+            [manhattan_block_scores(q32[a : a + chunk], vb) for a in range(0, b, chunk)]
+        )
+        if rec32 is not None:
+            s = s + rec32[rows][None, :]
+        if row_mask is not None:
+            s = s.masked_fill(~row_mask[rows][None, :], NEG_INF)
+        if cv is None:
+            cv, ci = exact_top_k(s, k_eff)
+            continue
+        allv = torch.cat([cv, s], dim=1)
+        alli = torch.cat([ci, (base + t * tile)[None, :].expand(b, tile)], dim=1)
+        cv, pos = exact_top_k(allv, k_eff)
+        ci = torch.gather(alli, 1, pos)
+    return cv, ci
 
 
 # Metrics served by rank_top_k_grouped_metric: one matmul plus a per-row
@@ -257,6 +342,19 @@ def _use_gmax(queries, vectors, k: int) -> bool:
     return _gmax.supported(queries, vectors, k)
 
 
+def _use_l1(queries, vectors, k: int) -> bool:
+    """Route batched manhattan scans through the L1 stage-1 kernels: the JAX
+    route's conditions (``_use_pallas_l1``) without its CPU bail-out, and
+    with the CUDA kernel's shape rule (``l1.supported``) in place of the TPU
+    block rules. An f16 query wire is upcast and takes the kernel too."""
+    from hyperdb_tpu_torch.ops import l1 as _l1  # l1 imports this module
+
+    min_b = CONFIG.pallas_l1_min_batch
+    if min_b <= 0 or queries.shape[0] < min_b:
+        return False
+    return _l1.supported(queries, vectors) and vectors.shape[0] // _l1.GROUP >= k
+
+
 def rank_top_k(
     queries,
     vectors,
@@ -321,10 +419,18 @@ def rank_top_k(
         and CONFIG.grouped_topk_min_rows > 0
         and n >= CONFIG.grouped_topk_min_rows
     ):
-        raise NotImplementedError(
-            "manhattan over a large corpus (streamed scan / L1 kernel) is not "
-            "ported yet: ROADMAP.md queue 1, item 7"
-        )
+        # never build the (B, N) score matrix: batches take the L1 stage-1
+        # kernels, recency (which the -L1 surrogate cannot carry) and small
+        # batches the streamed scan
+        if recency is None and _use_l1(queries, vectors, k):
+            from hyperdb_tpu_torch.ops.l1 import rank_top_k_manhattan_l1
+
+            return rank_top_k_manhattan_l1(queries, vectors, k, row_mask=row_mask)
+        tile = _manhattan_tile(int(queries.shape[0]), n, k)
+        if tile:
+            return rank_top_k_manhattan_stream(
+                queries, vectors, k, row_mask=row_mask, recency=recency, tile=tile
+            )
     if metric == "cosine_similarity" and prenormalized:
         s = _metrics.cosine_scores_prenormalized(queries, vectors)
     else:
@@ -333,3 +439,68 @@ def rank_top_k(
     if use_grouped:
         return exact_top_k_grouped(s, k, group=group)
     return exact_top_k(s, k)
+
+
+def rank_docs_top_k(
+    queries,
+    rows,
+    row_docs,
+    row_valid,
+    k: int,
+    num_docs: int,
+    metric: str = "cosine_similarity",
+    doc_mask=None,
+    recency=None,
+    prenormalized: bool = False,
+):
+    """Chunk-aware ranking: score rows, reduce to documents, take the top-k
+    documents (``ranking.rank_docs_top_k`` in the JAX package).
+
+    The corpus has one row per chunk but results are per document: a
+    document's score is its best chunk's. Row scores are scrubbed (NaN ->
+    -inf), rows that are padding or belong to a masked document become
+    -inf, and a segment max over ``row_docs`` reduces them (documents
+    without a live row stay -inf); recency and the document mask then apply
+    at document level. The (c, N_pad) row scores are materialised, for
+    every metric, a chunk of queries at a time.
+
+    Args:
+        queries: (B, d) query block.
+        rows: (N_pad, d) padded corpus rows.
+        row_docs: (N_pad,) integer chunk-row -> document index.
+        row_valid: (N_pad,) bool, False on capacity padding.
+        k: top-k (<= num_docs).
+        num_docs: padded document count (segment count).
+        doc_mask: optional (num_docs,) bool document filter mask.
+        recency: optional (num_docs,) f32 recency term.
+        prenormalized: rows are unit-norm (cosine fast path).
+
+    Returns:
+        (values, doc_indices): (B, k) f32 and (B, k) int64.
+    """
+    b = queries.shape[0]
+    n = rows.shape[0]
+    seg = row_docs.long()
+    valid = row_valid if doc_mask is None else row_valid & doc_mask[seg]
+    chunk = max(1, _CHUNK_CELLS // max(n, num_docs))
+    vals, idx = [], []
+    for a in range(0, b, chunk):
+        qc = queries[a : a + chunk]
+        if metric == "cosine_similarity" and prenormalized:
+            s = _metrics.cosine_scores_prenormalized(qc, rows)
+        else:
+            s = scores(qc, rows, metric)
+        s = s.float()
+        s = s.masked_fill(torch.isnan(s), NEG_INF).masked_fill(~valid[None, :], NEG_INF)
+        doc_s = torch.full(
+            (s.shape[0], num_docs), NEG_INF, dtype=torch.float32, device=s.device
+        )
+        doc_s.scatter_reduce_(1, seg[None, :].expand_as(s), s, "amax", include_self=True)
+        if recency is not None:
+            doc_s = doc_s + recency[None, :]
+        if doc_mask is not None:
+            doc_s = doc_s.masked_fill(~doc_mask[None, :], NEG_INF)
+        v, i = exact_top_k(doc_s, k)
+        vals.append(v)
+        idx.append(i)
+    return torch.cat(vals), torch.cat(idx)

@@ -3,10 +3,11 @@
 Counterpart of ``hyperdb_tpu/query/engine.py``: filters become host masks,
 then one ranking call runs on the store's device (score + NaN scrub + mask
 + recency + top-k). Served so far: unchunked corpora (one row per document)
-on float, int8 and int8-pure planes, with the grouped routes of every
-metric but manhattan; the key-filter override branch; and the tiny-corpus
-host path. Every other branch raises ``NotImplementedError`` naming its
-ROADMAP item.
+on float, int8 and int8-pure planes, with the grouped, kernel and streamed
+routes of all seven metrics; chunked corpora (several rows per document,
+ranked at document level); the key-filter override branch; and the
+tiny-corpus host path. The IVF and projscan indexes are not ported: a
+corpus that asks for one raises ``NotImplementedError`` in ``core/db.py``.
 
 Preserved reference semantics (SURVEY.md §2.4): Q10/Q11 metric naming and
 the brute-force INFO message, Q13 empty-candidate handling, Q16/Q17
@@ -516,9 +517,28 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
                 prenormalized=prenorm,
             )
     else:
-        raise NotImplementedError(
-            "chunked corpora (several rows per document) are not ported yet: "
-            "ROADMAP.md queue 1, item 3"
+        # Chunked corpus: score rows, reduce each document to its best row.
+        dv = store.device_view(db.source_indices)
+        d_pad = bucket_size(num_docs)
+        doc_mask = np.zeros(d_pad, dtype=bool)
+        doc_mask[:num_docs] = mask
+        rec_pad = None
+        if recency is not None:
+            rec_host = np.zeros(d_pad, dtype=np.float32)
+            rec_host[:num_docs] = recency
+            rec_pad = torch.from_numpy(rec_host).to(device)
+        prenorm = metric == "cosine_similarity"
+        vals, idx = _ranking.rank_docs_top_k(
+            q,
+            dv["rows_norm"] if prenorm else dv["rows"],
+            dv["row_docs"],
+            dv["row_valid"],
+            k=min(k_pad, d_pad),
+            num_docs=d_pad,
+            metric=metric,
+            doc_mask=torch.from_numpy(doc_mask).to(device),
+            recency=rec_pad,
+            prenormalized=prenorm,
         )
 
     idx_h, vals_h = fetch(idx, vals)

@@ -8,6 +8,9 @@ moves scores of magnitude <= 1 by a few f32 ulps (~1e-7 each); -inf positions mu
 ``gmax_int8`` and ``gmax_jaccard`` must EQUAL their plain versions: their
 products are exact integers and their epilogues are the same sequence of
 IEEE f32 operations, with no multiply-add contracted.
+``gmax_l1`` and ``gmax_l1t`` sum d terms |v - q| in f32 in another order
+than torch's ``sum(-1)``: rtol 1e-5 plus atol 1e-4 on distances of
+magnitude ~d; -inf / +inf positions must match exactly.
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from hyperdb_tpu_torch.ops import gmax as G
+from hyperdb_tpu_torch.ops import l1 as L
 from hyperdb_tpu_torch.ops import quantized as Q
 from hyperdb_tpu_torch.ops import ranking as R
 
@@ -268,3 +272,116 @@ def test_metric_db_on_card_matches_cpu(dev, monkeypatch, metric, kernel):
         assert G.LAUNCHES == before
     pi, pv = cpu.query_batch_arrays(q, top_k=10, metric=metric, **kw)
     assert np.abs(gv - pv).max() <= ATOL and (gi == pi).mean() > 0.99
+
+
+def _l1_inputs(dev, b, n, d, bf16, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    v[300] = v[40]  # an exact tie across groups
+    v[100, 5] = np.nan  # sinks its row only
+    v[512:640, 0] = np.nan  # a whole group of NaN rows
+    q[3, 7] = np.nan  # a NaN query: every group bottoms out
+    mask = rng.random(n) < 0.9
+    mask[128:256] = False  # one whole group masked
+    vt = torch.from_numpy(v).to(dev)
+    if bf16:
+        vt = vt.bfloat16()
+    extra = L.make_extra(n, torch.from_numpy(mask).to(dev), device=dev)
+    return torch.from_numpy(q).to(dev), vt, extra
+
+
+L1_SHAPES = [
+    (64, 4096, 384, True), (77, 2048, 128, False), (300, 1024, 40, True), (8, 1024, 1000, True),
+    (130, 1024, 384, False),
+]
+
+
+@pytest.mark.parametrize("b,n,d,bf16", L1_SHAPES)
+def test_gmax_l1_kernel_matches_plain(dev, b, n, d, bf16):
+    q, v, extra = _l1_inputs(dev, b, n, d, bf16, seed=b)
+    before = L.LAUNCHES["gmax_l1"]
+    got = L.gmax_l1(q, v, extra)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES["gmax_l1"] == before + 1
+    want = L.gmax_l1_plain(q, v, extra)
+    assert not torch.isnan(got).any()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = ~torch.isneginf(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+    assert torch.isneginf(got[:, 1]).all() and torch.isneginf(got[:, 4]).all()
+    assert torch.isneginf(got[3]).all()
+
+
+@pytest.mark.parametrize("b,n,d,bf16", L1_SHAPES)
+def test_gmax_l1t_kernel_matches_plain(dev, b, n, d, bf16):
+    q, v, extra = _l1_inputs(dev, b, n, d, bf16, seed=b)
+    vt = v.t().contiguous()
+    before = L.LAUNCHES["gmax_l1t"]
+    got = L.gmax_l1t(q, vt, extra)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES["gmax_l1t"] == before + 1
+    want = L.gmax_l1t_plain(q, vt, extra)
+    assert not torch.isnan(got).any()
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    fin = ~torch.isposinf(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+    assert torch.isposinf(got[:, 1]).all() and torch.isposinf(got[:, 4]).all()
+    assert (got[3] >= 1e29).all()  # the NaN query, at the finite 1e30
+    # the two contracts agree after negation wherever no query is NaN
+    a = L.gmax_l1(q, v, extra)
+    keep = torch.ones(b, dtype=torch.bool, device=dev)
+    keep[3] = False
+    torch.testing.assert_close(-got[keep], a[keep], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("l1t", [1, 0])
+def test_manhattan_route_equals_stream_on_card(dev, monkeypatch, l1t):
+    """The kernel route and the streamed scan rescore through one torch
+    expression: identical ids and identical scores on the card."""
+    from hyperdb_tpu_torch.config import CONFIG
+
+    monkeypatch.setattr(CONFIG, "pallas_l1t", l1t)
+    q, v, _ = _l1_inputs(dev, 64, 16384, 384, True, seed=5)
+    mask = torch.from_numpy(np.random.default_rng(6).random(16384) < 0.9).to(dev)
+    name = "gmax_l1t" if l1t else "gmax_l1"
+    before = L.LAUNCHES[name]
+    kv, ki = L.rank_top_k_manhattan_l1(q, v, 16, row_mask=mask)
+    assert L.LAUNCHES[name] == before + 1
+    sv, si = R.rank_top_k_manhattan_stream(q, v, 16, row_mask=mask, tile=4096)
+    assert torch.equal(ki, si) and torch.equal(kv, sv)
+
+
+@pytest.mark.parametrize("l1t", [1, 0])
+def test_manhattan_db_on_card_matches_cpu(dev, monkeypatch, l1t):
+    """Manhattan end to end, card against CPU: b = 64 through the kernel
+    named by ``pallas_l1t``, recency and b = 16 through the streamed scan.
+    The card's and the CPU's f32 sums run in different orders: 1e-5
+    relative on the scores, ids equal but for near-ties."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    monkeypatch.setattr(CONFIG, "pallas_l1t", l1t)
+    rng = np.random.default_rng(12)
+    v = (rng.standard_normal((16384, 384)) / np.sqrt(384)).astype(np.float16)
+    docs = [{"ts": float(i % 89) / 89.0} for i in range(16384)]
+    q = (rng.standard_normal((64, 384)) / np.sqrt(384)).astype(np.float32)
+    card = HyperDB(docs, v, fp_precision="float16", device=dev, metadata_keys=["ts"])
+    cpu = HyperDB(docs, v, fp_precision="float16", device="cpu", metadata_keys=["ts"])
+    name = "gmax_l1t" if l1t else "gmax_l1"
+
+    def same(kw, qq):
+        gi, gv = card.query_batch_arrays(qq, top_k=10, metric="manhattan_distance", **kw)
+        pi, pv = cpu.query_batch_arrays(qq, top_k=10, metric="manhattan_distance", **kw)
+        np.testing.assert_allclose(gv, pv, rtol=1e-5)
+        assert (gi == pi).mean() > 0.99
+
+    before = dict(L.LAUNCHES)
+    same({}, q)
+    assert L.LAUNCHES[name] == before[name] + 1
+    same({}, q.astype(np.float16))  # the f16 wire takes the kernel too
+    assert L.LAUNCHES[name] == before[name] + 2
+    same({"recency_bias": 0.05, "timestamp_key": "ts"}, q)
+    same({}, q[:16])
+    assert sum(L.LAUNCHES.values()) == sum(before.values()) + 2

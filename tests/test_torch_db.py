@@ -200,7 +200,9 @@ def test_not_ported_branches_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         db.save("x")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.add({"name": "x"}, vectors=np.zeros((2, D)))
+        db.add({"name": "x"})  # no vectors: text embedding
+    db.add({"name": "x"}, vectors=np.zeros((2, D)))  # two rows for one document
+    assert (db.size(), db.size(with_chunks=True)) == (33, 34)
     assert TorchDB(docs, v, device="cpu", device_precision="int8")._store.precision == "int8"
     with pytest.raises(ValueError):
         TorchDB(docs, v, device="cpu", device_precision="int4")

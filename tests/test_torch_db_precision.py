@@ -271,5 +271,10 @@ def test_unported_branches_still_raise(monkeypatch):
     monkeypatch.setattr(TORCH_CONFIG, "grouped_topk_min_rows", 32)
     monkeypatch.setattr(TORCH_CONFIG, "host_path_max_cells", 0)
     db = TorchDB(docs, v, device="cpu")
-    with pytest.raises(NotImplementedError, match="manhattan.*item 7"):
-        db.query_batch_arrays(_queries(4, 0), top_k=3, metric="manhattan_distance")
+    # manhattan over a large corpus is ported: it answers instead of raising
+    ids, _ = db.query_batch_arrays(_queries(4, 0), top_k=3, metric="manhattan_distance")
+    assert ids.shape == (4, 3)
+    with pytest.raises(NotImplementedError, match="persistence.*item 9"):
+        db.save("x")
+    with pytest.raises(NotImplementedError, match="text embedding.*item 4"):
+        db.add({"name": "x"})

@@ -19,6 +19,7 @@ import hyperdb_tpu_torch
 from hyperdb_tpu_torch.core.db import resolve_device
 from hyperdb_tpu_torch.ops import cuda_build
 from hyperdb_tpu_torch.ops import gmax as G
+from hyperdb_tpu_torch.ops import l1 as L
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hyperdb_tpu", "hyperdb")
@@ -100,6 +101,50 @@ def test_wrappers_raise_without_kernel(no_kernel_library):
     assert G.LAUNCHES == before
 
 
+def test_l1_wrappers_raise_without_kernel(no_kernel_library, monkeypatch):
+    """``gmax_l1`` / ``gmax_l1t`` and the manhattan route above them: a
+    tensor off the CPU reaches the kernel and the failed build raises; no
+    streamed scan or plain version steps in."""
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    q = torch.empty((64, 128), dtype=torch.float32, device="meta")
+    v = torch.empty((1024, 128), dtype=torch.bfloat16, device="meta")
+    extra = torch.empty((1024,), dtype=torch.float32, device="meta")
+    before = dict(L.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        L.gmax_l1(q, v, extra)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        L.gmax_l1t(q, v.t().contiguous(), extra)
+    monkeypatch.setattr(L, "rank_top_k_manhattan_stream", lambda *a, **kw: pytest.fail("stream"))
+    monkeypatch.setattr(L, "gmax_l1_plain", lambda *a, **kw: pytest.fail("plain version"))
+    monkeypatch.setattr(L, "gmax_l1t_plain", lambda *a, **kw: pytest.fail("plain version"))
+    for l1t in (1, 0):
+        monkeypatch.setattr(L.CONFIG, "pallas_l1t", l1t)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            L.rank_top_k_manhattan_l1(q, v, 4)
+    monkeypatch.setattr(R.CONFIG, "grouped_topk_min_rows", 512)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        R.rank_top_k(q, v, 4, metric="manhattan_distance")
+    assert L.LAUNCHES == before and set(L.LAUNCHES) == {"gmax_l1", "gmax_l1t"}
+    # the same shapes on CPU tensors take the plain versions
+    cpu = [torch.zeros(t.shape, dtype=t.dtype) for t in (q, v, extra)]
+    monkeypatch.undo()
+    assert L.gmax_l1(*cpu).shape == (64, 8)
+    assert L.gmax_l1t(cpu[0], cpu[1].t().contiguous(), cpu[2]).shape == (64, 8)
+    assert L.LAUNCHES == before
+
+
+def test_l1_wrappers_check_their_operands(monkeypatch):
+    """With a library in place the wrappers refuse what the kernel does not
+    take, before any launch."""
+    monkeypatch.setattr(L, "_scan_fn", lambda: pytest.fail)
+    q = torch.empty((64, 128), dtype=torch.float32, device="meta")
+    v = torch.empty((1024, 128), dtype=torch.bfloat16, device="meta")
+    extra = torch.empty((1024,), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        L._launch(L._KIND_L1, q, v, extra, 1024)
+
+
 def test_routes_raise_without_kernel(no_kernel_library, monkeypatch):
     """The routes above the wrappers give way to nothing either: a tensor
     that is not on the CPU reaches the kernel, and the failed build raises
@@ -135,9 +180,9 @@ def test_missing_library_file_raises(no_kernel_library, monkeypatch, tmp_path):
 
 
 def test_build_flags_and_sources():
-    # one source holds all four kernels (gmax_f_sub, gmax_f, gmax_int8,
-    # gmax_jaccard are instantiations of one template)
-    assert cuda_build.sources() == ["gmax"]
+    # gmax.cu holds four kernels (gmax_f_sub, gmax_f, gmax_int8, gmax_jaccard
+    # are instantiations of one template), l1.cu the two manhattan ones
+    assert cuda_build.sources() == ["gmax", "l1"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     # no fast-math: the jaccard division and the NaN scrub must be IEEE
     assert not any("fast" in flag for flag in cuda_build.NVCC_FLAGS)
@@ -146,3 +191,21 @@ def test_build_flags_and_sources():
         assert needle in src
     p = cuda_build.library_path("gmax")
     assert p.parent == cuda_build.BUILD_DIR and p.name.startswith("libgmax-")
+
+
+def test_l1_source_carries_its_note():
+    """``csrc/l1.cu``: hand-written CUDA with a plain C entry point, the note
+    on which TPU kernels it replaces and what bounds it, and nothing of
+    PyTorch's headers (they would turn a build of seconds into minutes)."""
+    src = (cuda_build.CSRC / "l1.cu").read_text()
+    for needle in (
+        "hyperdb_tpu/ops/pallas_l1.py", "gmax_l1 (_l1_kernel)", "gmax_l1t (_l1t_kernel)",
+        "Bound on the H100: operations", 'extern "C" int l1_scan', "__global__",
+        "KIND_L1T", "__shfl_xor_sync", "fabsf",
+    ):
+        assert needle in src, needle
+    for banned in ("torch/", "ATen", "atomicMax", "atomicMin", "atomicCAS", "cublas", "mma."):
+        assert banned not in src, banned
+    doc = L.__doc__
+    assert "hyperdb_tpu/ops/pallas_l1.py" in doc and "Bound on the H100: operations" in doc
+    assert cuda_build.library_path("l1").name.startswith("libl1-")

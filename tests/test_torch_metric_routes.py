@@ -259,3 +259,68 @@ def test_gmax_route_refuses_out_of_contract(rows_dtype, n, metric):
     if metric == "pearson_correlation":
         with pytest.raises(ValueError, match="no grouped epilogue"):
             TR.rank_top_k_grouped_metric(q, rows, torch.ones(n), 4, metric)
+
+
+# ---------------------------------------------------------------- manhattan
+
+MANHATTAN_KWARGS = {
+    "plain": {},
+    "filter": {"filters": [("metadata", {"kind": "b"})]},
+    "recency": {"recency_bias": 0.05, "timestamp_key": "ts"},
+}
+
+
+@pytest.fixture(scope="module")
+def manhattan_dbs():
+    from hyperdb_tpu import HyperDB as JaxDB
+    from hyperdb_tpu_torch import HyperDB as TorchDB
+
+    rng = np.random.default_rng(21)
+    v = (rng.standard_normal((16384, 128)) / np.sqrt(128)).astype(np.float16)
+    v[17] = v[4]  # exact duplicates: the lower id first
+    docs = [{"ts": float(i % 97) / 97.0, "kind": ("a", "b", "c")[i % 3]} for i in range(16384)]
+    kw = {"fp_precision": "float16", "metadata_keys": ["kind", "ts"]}
+    return JaxDB(docs, v, **kw), TorchDB(docs, v, device="cpu", **kw), v
+
+
+@pytest.mark.parametrize("how", list(MANHATTAN_KWARGS))
+@pytest.mark.parametrize("wire", [np.float32, np.float16], ids=["f32", "f16"])
+@pytest.mark.parametrize("b", [64, 16])
+def test_manhattan_db_matches_jax(monkeypatch, manhattan_dbs, b, wire, how):
+    """Manhattan over a large corpus through ``HyperDB`` of both packages,
+    over bf16 planes. b = 64 is the smallest batch on the port's kernel route
+    (an f16 wire is upcast and takes it too); recency and b = 16 take the
+    streamed scan. Ids identical; scores ``rtol 1e-6`` (f32 sums of |v - q|
+    in different orders; 1e-6 absolute once recency adds its term)."""
+    from hyperdb_tpu_torch.ops import l1 as L
+
+    monkeypatch.setattr(JAX_CONFIG, "grouped_topk_min_rows", 4096)
+    monkeypatch.setattr(TORCH_CONFIG, "grouped_topk_min_rows", 4096)
+    JR.rank_top_k.clear_cache()  # the threshold is read when the router is traced
+    jdb, tdb, v = manhattan_dbs
+    q = np.random.default_rng(b).standard_normal((b, 128)).astype(np.float32) / np.sqrt(128)
+    q[0] = v[4].astype(np.float32)
+    q = q.astype(wire)
+    calls = []
+    for name in ("gmax_l1", "gmax_l1t", "rank_top_k_manhattan_stream"):
+        real = getattr(L, name)
+        monkeypatch.setattr(
+            L, name, lambda *a, _n=name, _r=real, **kw: calls.append(_n) or _r(*a, **kw)
+        )
+    stream = TR.rank_top_k_manhattan_stream
+    monkeypatch.setattr(
+        TR, "rank_top_k_manhattan_stream",
+        lambda *a, **kw: calls.append("router stream") or stream(*a, **kw),
+    )
+    kw = MANHATTAN_KWARGS[how]
+    ti, ts = tdb.query_batch_arrays(q, top_k=10, metric="manhattan_distance", **kw)
+    ji, js = jdb.query_batch_arrays(q, top_k=10, metric="manhattan_distance", **kw)
+    JR.rank_top_k.clear_cache()
+    JR.rank_top_k_manhattan_stream.clear_cache()
+    assert calls == (["gmax_l1t"] if b == 64 and how != "recency" else ["router stream"])
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=1e-6, atol=1e-6 if how == "recency" else 0)
+    if how == "plain":
+        assert ti[0, :2].tolist() == [4, 17]
+    if how == "filter":
+        assert (ti % 3 == 1).all()

@@ -142,6 +142,20 @@ def test_exact_top_k_prefers_lower_index():
 
 
 def test_large_manhattan_not_ported(grouped):
-    v = torch.zeros(N, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.rank_top_k(torch.zeros(4, D), v, K, metric="manhattan_distance")
+    """Manhattan over a large corpus used to raise; it now takes the
+    streamed scan at this batch and returns the JAX router's answer
+    (``tests/test_torch_l1.py`` holds the routes in full)."""
+    v, jv, tv, mask, rec = _corpus(23, low_precision=True)
+    q = np.random.default_rng(24).standard_normal((4, D)).astype(np.float32)
+    q[0] = v[2]  # rows 2 and 9 tie at the top for query 0
+    jvals, jidx = JR.rank_top_k(
+        jnp.asarray(q), jv, K, metric="manhattan_distance",
+        row_mask=jnp.asarray(mask), recency=jnp.asarray(rec),
+    )
+    tvals, tidx = TR.rank_top_k(
+        torch.from_numpy(q), tv, K, metric="manhattan_distance",
+        row_mask=torch.from_numpy(mask), recency=torch.from_numpy(rec),
+    )
+    assert tidx[0, :2].tolist() == [2, 9]
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(tvals.numpy(), np.asarray(jvals), rtol=1e-6)
