@@ -5,15 +5,22 @@
 Phases, one or a few lines each on standard output:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the torch
-   and nvcc versions, and the time the kernels took to build;
+   and nvcc versions, and the time the kernels took to build. The stage-1
+   scans exist in two variants (``wgmma`` fed by TMA, which the shape rule
+   ``gmax.kernel_variant`` picks at these shapes, and ``mma.sync``): every
+   launch through ``HyperDB`` must have run the first
+   (``gmax.LAUNCHES_BY_VARIANT``), and each of the four kernels is also timed
+   through the second in the same run (``ms_before``);
 2. the float kernels (``gmax_f_sub`` single and dual, ``gmax_f``) against
    their plain PyTorch versions at the main path's shapes: a 2^20-row,
    d = 384 bf16 plane, b = 512, with masked rows, recency, a NaN row, a
    NaN group and duplicated rows. Tolerance 1e-5 absolute on unit-norm operands (the
    kernel and the plain f32 matmul sum the same exact bf16 products in
-   different orders); -inf positions must match exactly. Each is timed
-   (median of CUDA-event times after warm-up) beside its bound and the time
-   of ``torch.mm`` with f32 output plus ``amax`` over the same product;
+   different orders); -inf positions must match exactly, and the two
+   variants must agree within the same tolerance. Each is timed (median of
+   CUDA-event times after warm-up) beside its bound, the ``mma.sync``
+   variant and the time of ``torch.mm`` with f32 output plus ``amax`` over
+   the same product; the b = 16384 line times both variants too;
 3. the main path: ``HyperDB(documents, 1M x 384 f16 vectors,
    fp_precision="float16")`` on the card, ``query_batch_arrays`` with
    cosine, top_k = 10 at b = 512 and b = 16384; every launch counter is set
@@ -107,7 +114,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # H100 SXM FP32 outside the tensor cores: 67 TFLOP/s counts a fused
 # multiply-add as two, so the CUDA cores run half that many lane-operations
 PEAK_FP32_OPS = 67e12 / 2
-GMAX_SOURCE = "hyperdb_tpu_torch/csrc/gmax.cu"
+GMAX_SOURCE = "hyperdb_tpu_torch/csrc/gmax_wgmma.cu"
 L1_SOURCE = "hyperdb_tpu_torch/csrc/l1.cu"
 L1_RTOL, L1_ATOL = 1e-5, 1e-4  # group maxes of -L1: another d-sum order than torch's
 MANHATTAN_ATOL = 1e-8  # scores 1/(1 + L1) ~ 2e-3 from distances equal within ~1e-4 in ~430
@@ -227,27 +234,53 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def kernel_entry(name, replaces, err, kern, plain, lib, bound, reps=20,
-                 source=GMAX_SOURCE, slow=False):
+                 source=GMAX_SOURCE, slow=False, before=None):
     """Time one kernel beside its plain version and its library call, and
     make its entry of the ``kernels`` line. ``lib`` may be None. ``slow``
     times the plain version and the library call once each, with no
-    warm-up (they take seconds)."""
+    warm-up (they take seconds). ``before`` is the same scan through the
+    ``mma.sync`` variant: its time is the entry's ``ms_before``."""
     ms = cuda_ms(kern, reps=reps)
+    ms_before = None if before is None else cuda_ms(before, reps=reps)
     side_reps, side_warmup = (1, 0) if slow else (5, 1)
     plain_ms = cuda_ms(plain, reps=side_reps, warmup=side_warmup)
     lib_ms = None if lib is None else cuda_ms(lib, reps=side_reps, warmup=side_warmup)
     bound_ms, bound_by = bound
     lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
+    before_txt = "" if ms_before is None else f" ms_before={ms_before:.4f} (mma.sync variant)"
     log(
-        f"kernel {name}: max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"kernel {name}: max_abs_err={err:.3g} ms={ms:.4f}{before_txt} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_txt} bound_ms={bound_ms:.4f} ({bound_by}) "
         f"bound/ms={bound_ms / ms:.3f}"
     )
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
     }
+    if ms_before is not None:
+        entry["ms_before"] = ms_before
+    return entry
+
+
+def scan_before(kind, q, v, extra, sub=0, group=True, qaux=None, vaux=None):
+    """One stage-1 scan through the ``mma.sync`` variant, whatever the shape
+    rule picks: the kernel of before the redesign, timed beside the new one."""
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    b, n = q.shape[0], v.shape[0]
+    sm = torch.empty((b, n // sub), dtype=torch.float32, device=q.device) if sub else None
+    gm = torch.empty((b, n // G.GROUP), dtype=torch.float32, device=q.device) if group else None
+    G._launch(kind, q, v, extra, sm, gm, sub, qaux=qaux, vaux=vaux, _variant="mma")
+    return gm, sm
+
+
+def both_variants_line(name, b, ms, ms_before, bound, bound_by, card):
+    log(
+        f"kernel {name}: b={b} ms={ms:.4f} ms_before={ms_before:.4f} (mma.sync variant) "
+        f"bound_ms={bound:.4f} ({bound_by}) bound/ms={bound / ms:.3f} "
+        f"bound/ms_before={bound / ms_before:.3f} [{card}]"
+    )
 
 
 # ---------------------------------------------------------------- data
@@ -496,7 +529,7 @@ class DocReference:
 # ---------------------------------------------------------------- phases
 
 
-def phase_kernels(plane: torch.Tensor, n: int, seed: int):
+def phase_kernels(plane: torch.Tensor, n: int, seed: int, card: str):
     """The float kernels against their plain versions at the main path's shapes."""
     from hyperdb_tpu_torch.ops import gmax as G
 
@@ -529,7 +562,13 @@ def phase_kernels(plane: torch.Tensor, n: int, seed: int):
     for name, err in (("gmax_f_sub", err_sub), ("gmax_f_sub dual", err_dual), ("gmax_f", err_f)):
         if err > ATOL:
             raise AssertionError(f"{name}: max abs err {err:.3g} > {ATOL}")
-    del gm_d, sm_d, want_sm, want_gm
+    old_gm, old_sm = scan_before(G._KIND_F, q, v, extra, sub=SUB)
+    torch.cuda.synchronize()
+    err_old = max(max_err(old_sm, sm), max_err(old_gm, gm))
+    if err_old > ATOL:
+        raise AssertionError(f"gmax_f_sub: the two variants differ by {err_old:.3g} > {ATOL}")
+    log(f"gmax_f_sub: wgmma variant against mma.sync variant: max abs diff {err_old:.3g}")
+    del gm_d, sm_d, want_sm, want_gm, old_gm, old_sm
 
     def library(width):
         s = torch.mm(q, v.T, out_dtype=torch.float32)
@@ -542,11 +581,13 @@ def phase_kernels(plane: torch.Tensor, n: int, seed: int):
             lambda: G.gmax_f_sub(q, v, extra, sub=SUB, dual=False),
             lambda: G.gmax_f_sub_plain(q, v, extra, sub=SUB),
             lambda: library(SUB), scan_bound_ms(b, n_pad, DIM, n_pad // SUB),
+            before=lambda: scan_before(G._KIND_F, q, v, extra, sub=SUB, group=False),
         ),
         "gmax_f": kernel_entry(
             "gmax_f", "hyperdb_tpu/ops/pallas_gmax.py:217", err_f,
             lambda: G.gmax_f(q, v, extra), lambda: G.gmax_f_plain(q, v, extra),
             lambda: library(G.GROUP), scan_bound_ms(b, n_pad, DIM, n_pad // G.GROUP),
+            before=lambda: scan_before(G._KIND_F, q, v, extra),
         ),
     }
     dual_ms = cuda_ms(lambda: G.gmax_f_sub(q, v, extra, sub=SUB, dual=True), reps=20)
@@ -555,11 +596,12 @@ def phase_kernels(plane: torch.Tensor, n: int, seed: int):
     # the main path's large batch: kernel time beside its bound
     qb = q.repeat(32, 1)
     ms_big = cuda_ms(lambda: G.gmax_f_sub(qb, v, extra, sub=SUB, dual=False), reps=5)
+    ms_old = cuda_ms(lambda: scan_before(G._KIND_F, qb, v, extra, sub=SUB, group=False), reps=3)
     bound, bound_by = scan_bound_ms(qb.shape[0], n_pad, DIM, n_pad // SUB)
-    log(
-        f"kernel gmax_f_sub: b={qb.shape[0]} ms={ms_big:.4f} bound_ms={bound:.4f} "
-        f"({bound_by}) bound/ms={bound / ms_big:.3f}"
-    )
+    both_variants_line("gmax_f_sub", qb.shape[0], ms_big, ms_old, bound, bound_by, card)
+    dual_big = cuda_ms(lambda: G.gmax_f_sub(qb, v, extra, sub=SUB, dual=True), reps=5)
+    log(f"kernel gmax_f_sub dual: b={qb.shape[0]} ms={dual_big:.4f} (the single form adds a "
+        f"torch amax over the subgroup maxes for its group maxes)")
     del qb, v
     torch.cuda.empty_cache()
     return results
@@ -621,13 +663,14 @@ def phase_kernel_jaccard(rows_bin: torch.Tensor, bin_sum: torch.Tensor, seed: in
         lambda: G.gmax_jaccard(qq, v, q_sum, aux, extra),
         lambda: G.gmax_jaccard_plain(qq, v, q_sum, aux, extra),
         library, scan_bound_ms(b, n_pad, DIM, n_pad // G.GROUP, "jaccard"),
+        before=lambda: scan_before(G._KIND_JACCARD, qq, v, extra, qaux=q_sum.reshape(b), vaux=aux),
     )
     del v, aux
     torch.cuda.empty_cache()
     return entry
 
 
-def phase_kernel_int8(v_i8: torch.Tensor, v_scales: torch.Tensor, seed: int):
+def phase_kernel_int8(v_i8: torch.Tensor, v_scales: torch.Tensor, seed: int, card: str):
     """``gmax_int8`` against its plain version at b = 1024 on the store's
     unit-norm int8 plane, with masks, recency, zero-scale rows (one alone,
     one whole group) and a zero-scale query; the two must be equal."""
@@ -674,15 +717,14 @@ def phase_kernel_int8(v_i8: torch.Tensor, v_scales: torch.Tensor, seed: int):
         lambda: G.gmax_int8(q_i8, q_scale, v, vs, extra),
         lambda: G.gmax_int8_plain(q_i8, q_scale, v, vs, extra),
         lib, scan_bound_ms(b, n_pad, DIM, n_pad // G.GROUP, "int8"),
+        before=lambda: scan_before(G._KIND_INT8, q_i8, v, extra, qaux=q_scale, vaux=vs),
     )
     q4 = q_i8.repeat(4, 1)
     qs4 = q_scale.repeat(4)
     ms_big = cuda_ms(lambda: G.gmax_int8(q4, qs4, v, vs, extra), reps=5)
+    ms_old = cuda_ms(lambda: scan_before(G._KIND_INT8, q4, v, extra, qaux=qs4, vaux=vs), reps=5)
     bound, bound_by = scan_bound_ms(q4.shape[0], n_pad, DIM, n_pad // G.GROUP, "int8")
-    log(
-        f"kernel gmax_int8: b={q4.shape[0]} ms={ms_big:.4f} bound_ms={bound:.4f} "
-        f"({bound_by}) bound/ms={bound / ms_big:.3f}"
-    )
+    both_variants_line("gmax_int8", q4.shape[0], ms_big, ms_old, bound, bound_by, card)
     del v, vs, q4
     torch.cuda.empty_cache()
     return entry
@@ -827,8 +869,23 @@ def stage_breakdown_int8(db, q: np.ndarray, wall: float, card: str) -> None:
 
 
 def zero_launches(G) -> None:
-    for key in G.LAUNCHES:
-        G.LAUNCHES[key] = 0
+    for counter in (G.LAUNCHES, getattr(G, "LAUNCHES_BY_VARIANT", {})):
+        for key in counter:
+            counter[key] = 0
+
+
+def check_variant(G, name: str) -> dict:
+    """Every stage-1 launch since the counters were zeroed ran the wgmma
+    variant: the variant counter holds the wrappers' launches, all under
+    ``wgmma``. Returns a copy of the variant counter."""
+    by_variant = dict(G.LAUNCHES_BY_VARIANT)
+    total = sum(G.LAUNCHES.values())
+    if by_variant != {"wgmma": total, "mma": 0}:
+        raise AssertionError(
+            f"{name}: {total} launches by wrapper but {by_variant} by variant: "
+            "the path did not run the wgmma kernel alone"
+        )
+    return by_variant
 
 
 def path_metrics(db, corpus, kernels, seed: int, card: str) -> None:
@@ -849,13 +906,15 @@ def path_metrics(db, corpus, kernels, seed: int, card: str) -> None:
         zero_launches(G)
         ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric=metric)
         launches = dict(G.LAUNCHES)
+        by_variant = check_variant(G, metric)
         if launches[kernel] < 1 or sum(launches.values()) != launches[kernel]:
             raise AssertionError(f"{metric}: expected {kernel} alone, launched {launches}")
         if kernel == "gmax_jaccard":
             kernels["gmax_jaccard"]["launches"] = launches[kernel]
         swaps, err = check_top_k(metric, ids, vals, metric_reference(db, metric, q, TOP_K), atol)
         log(
-            f"path B {metric} b=512: launches {json.dumps(launches)}; ids tie-aware equal to "
+            f"path B {metric} b=512: launches {json.dumps(launches)} by variant "
+            f"{json.dumps(by_variant)}; ids tie-aware equal to "
             f"the plain reference ({swaps} tied swaps, score err {err:.3g}, tol {atol})"
         )
         wall = run_batch(db, q, f"path B {metric}", card, metric=metric)
@@ -868,6 +927,7 @@ def path_metrics(db, corpus, kernels, seed: int, card: str) -> None:
         kw = {"recency_bias": RECENCY_BIAS, "timestamp_key": "ts"}
         ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric=metric, **kw)
         launches = dict(G.LAUNCHES)
+        check_variant(G, f"{metric} with recency")
         want = {kernel: 1} if metric == "pearson_correlation" else {}
         if {name: c for name, c in launches.items() if c} != want:
             raise AssertionError(f"{metric} with recency: launched {launches}, expected {want}")
@@ -893,7 +953,7 @@ def path_int8(docs, corpus, kernels, plane_bf16, seed: int, card: str) -> None:
     torch.cuda.synchronize()
     log(f"int8-pure db build: {tuple(dv['rowsn_q'].shape)} {dv['rowsn_q'].dtype} planes, "
         f"{time.perf_counter() - t:.1f} s")
-    kernels["gmax_int8"] = phase_kernel_int8(dv["rowsn_q"], dv["rown_scales"], seed)
+    kernels["gmax_int8"] = phase_kernel_int8(dv["rowsn_q"], dv["rown_scales"], seed, card)
 
     q1k = make_queries(seed + 40, 1024, corpus)
     q4k = make_queries(seed + 41, 4096, corpus)
@@ -901,7 +961,8 @@ def path_int8(docs, corpus, kernels, plane_bf16, seed: int, card: str) -> None:
     i1k, v1k = db.query_batch_arrays(q1k, top_k=TOP_K)
     i4k, v4k = db.query_batch_arrays(q4k, top_k=TOP_K)
     launches = dict(G.LAUNCHES)
-    log(f"path A int8-pure launches: {json.dumps(launches)}")
+    by_variant = check_variant(G, "int8-pure")
+    log(f"path A int8-pure launches: {json.dumps(launches)} by variant: {json.dumps(by_variant)}")
     if launches["gmax_int8"] < 2:
         raise AssertionError("int8-pure did not launch gmax_int8 once per batch")
     kernels["gmax_int8"]["launches"] = launches["gmax_int8"]
@@ -943,7 +1004,8 @@ def path_int8(docs, corpus, kernels, plane_bf16, seed: int, card: str) -> None:
     zero_launches(G)
     ids, vals = db.query_batch_arrays(q1k, top_k=TOP_K)
     launches = dict(G.LAUNCHES)
-    log(f"path A int8 launches: {json.dumps(launches)}")
+    by_variant = check_variant(G, "int8")
+    log(f"path A int8 launches: {json.dumps(launches)} by variant: {json.dumps(by_variant)}")
     if launches["gmax_int8"] < 1:
         raise AssertionError("int8 did not launch gmax_int8")
     kernels["gmax_int8"]["launches"] += launches["gmax_int8"]
@@ -1236,6 +1298,7 @@ def main() -> int:
     from hyperdb_tpu_torch.ops import gmax as G
 
     # 1. environment and build
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {nvcc_version()}")
@@ -1255,7 +1318,7 @@ def main() -> int:
         f"on {plane.device}, {time.perf_counter() - t:.1f} s")
 
     # 2. float kernels against their plain versions
-    kernels = phase_kernels(plane, N_DOCS, args.seed)
+    kernels = phase_kernels(plane, N_DOCS, args.seed, card)
 
     # 3. the main path: launch counts from this run only
     q512 = make_queries(args.seed + 2, 512, corpus)
@@ -1264,7 +1327,8 @@ def main() -> int:
     i512, v512 = db.query_batch_arrays(q512, top_k=TOP_K, metric="cosine_similarity")
     i16k, v16k = db.query_batch_arrays(q16k, top_k=TOP_K, metric="cosine_similarity")
     launches = dict(G.LAUNCHES)
-    log(f"main path launches: {json.dumps(launches)}")
+    by_variant = check_variant(G, "main path")
+    log(f"main path launches: {json.dumps(launches)} by variant: {json.dumps(by_variant)}")
     if launches["gmax_f_sub"] < 2:
         raise AssertionError("the main path did not launch gmax_f_sub at both batches")
     kernels["gmax_f_sub"]["launches"] = launches["gmax_f_sub"]
@@ -1286,7 +1350,8 @@ def main() -> int:
     zero_launches(G)
     ids, vals = db.query_batch_arrays(q512, top_k=TOP_K, metric="cosine_similarity")
     launches_f = dict(G.LAUNCHES)
-    log(f"gmax_f path launches: {json.dumps(launches_f)}")
+    by_variant = check_variant(G, "gmax_f path")
+    log(f"gmax_f path launches: {json.dumps(launches_f)} by variant: {json.dumps(by_variant)}")
     if launches_f["gmax_f"] < 1:
         raise AssertionError("pallas_subgroup=0 did not route stage 1 through gmax_f")
     kernels["gmax_f"]["launches"] = launches_f["gmax_f"]
@@ -1340,6 +1405,7 @@ def main() -> int:
     for name in names:
         if kernels[name]["launches"] < 1:
             raise AssertionError(f"{name} was never launched through HyperDB")
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [kernels[name] for name in names]}))
     log(json.dumps({
         "ok": True,

@@ -1,7 +1,10 @@
-// Stage-1 grouped-max scans on Hopper: one tensor-core product of a query
-// block with the corpus, a per-score epilogue, then the max over every run
-// of `sub` corpus rows (and/or over every 128-row group). One kernel
-// template serves the four Pallas kernels of hyperdb_tpu/ops/pallas_gmax.py:
+// Stage-1 grouped-max scans on Hopper, the mma.sync variant: the kernel for
+// the shapes the wgmma / TMA variant (gmax_wgmma.cu) does not take, which
+// are depths whose 128-query tile leaves no room for a ring of corpus tiles
+// in one block's shared memory (row bytes above 1536: d > 768 in bf16,
+// d > 1536 in int8). It is also the yardstick the other variant is timed
+// against. One kernel template serves the four Pallas kernels of
+// hyperdb_tpu/ops/pallas_gmax.py:
 //
 //   KIND_F        gmax_f, gmax_f_sub: s = q . v (bf16, f32 accumulation)
 //                 + extra, NaN -> -inf.
@@ -11,24 +14,21 @@
 //                 s = inter / (|q| + |v| - inter), NaN (0/0) -> -inf, and
 //                 only then + extra.
 //
-// Bound on the H100: compute. A (B, d) x (d, N) product is 2*B*N*d
-// operations against one read of the corpus (N*d*2 bytes in bf16, N*d in
-// int8), far above the card's ~295 (bf16) or ~590 (int8) operations per
-// byte at the batches these kernels serve (b >= 512).
-// Design: tensor-core mma.sync (m16n8k16 bf16, m16n8k32 s8) from
-// shared-memory tiles fed by a two-stage cp.async pipeline; the (B, N) score
-// matrix never reaches device memory — each block reduces its 128 x 128
-// score tile to 8-row maxes in registers and shared memory and writes only
-// the (B, N/sub) and/or (B, N/128) maxes. Query tiles are the fastest grid
-// index, so the blocks that share one corpus block run together and the
-// corpus is read from device memory about once; the query block stays in
-// L2. The tiles are addressed in bytes: a 32-byte k-step holds 16 bf16 or
-// 32 s8 values, and the two mma shapes place the same bytes of a row in the
-// same registers, so one loader and one ldmatrix pattern feed both.
-// The int8 and jaccard epilogues use the round-to-nearest intrinsics so no
-// multiply-add is contracted: with exact integer products they equal their
-// plain PyTorch versions bit for bit. wgmma/TMA and a resident corpus block
-// are later work.
+// Bound on the H100: operations (2*B*N*d on tensor cores against one read of
+// the corpus). Design: tensor-core mma.sync (m16n8k16 bf16, m16n8k32 s8) from
+// shared-memory tiles fed by a two-stage cp.async pipeline of 64 bytes of
+// depth, any depth streamed; the (B, N) score matrix never reaches device
+// memory: each block reduces its 128 x 128 score tile to 8-row maxes in
+// registers and shared memory and writes only the (B, N/sub) and/or
+// (B, N/128) maxes. Query tiles are the fastest grid index, so the blocks
+// that share one corpus block run together and the corpus is read from
+// device memory about once; the query block stays in L2. The tiles are
+// addressed in bytes: a 32-byte k-step holds 16 bf16 or 32 s8 values, and
+// the two mma shapes place the same bytes of a row in the same registers, so
+// one loader and one ldmatrix pattern feed both. What holds it to about a
+// fifth of the bound: every block reloads its query tile, one stage of loads
+// is in flight behind 32 mma a warp, and mma.sync does not reach the tensor
+// cores' full rate; gmax_wgmma.cu answers each.
 //
 // Shapes: q (b, d), v (n, d) of bf16 or s8, qaux (b,) f32 and vaux (n,) f32
 // (scales, or popcounts; unused by KIND_F), extra (n,) f32, all contiguous

@@ -11,7 +11,7 @@ masks and recency into one additive vector (0 or the recency on live rows,
 function and the containment argument of the JAX route holds: every true
 top-k row lives in a selected subgroup, up to ties at the k-th value.
 
-Kernels (``csrc/gmax.cu``, one templated CUDA kernel for all four):
+Kernels (one templated CUDA kernel for all four, in two variants):
 
 - :func:`gmax_f_sub` replaces ``pallas_gmax.gmax_f_sub`` (kernel body
   ``pallas_gmax.py:318``): ``q . v + extra`` over bf16 operands, subgroup
@@ -32,17 +32,28 @@ pearson planes), :func:`rank_top_k_grouped_metric_gmax` (euclidean and
 hamming through a dot surrogate on the float kernels, jaccard on its own)
 and :func:`rank_top_k_int8_gmax` (int8 planes).
 
-Bound on the H100: compute — 2*B*N*d operations on tensor cores against
-one read of the (N, d) corpus; at b = 512 and N = 2^20, d = 384 that is
-0.41 TFLOP against 0.8 GB, about 500 operations per byte, above the card's
-~295 in bf16 (int8 at b = 1024: 2000 per byte against ~590). The kernel
-therefore runs the product on tensor cores (``mma.sync``) and keeps the
-(B, N) score matrix out of device memory, writing only the maxes; see the
-source for the tiling.
+Bound on the H100: operations — 2*B*N*d on tensor cores against one read
+of the (N, d) corpus; at b = 512 and N = 2^20, d = 384 that is 0.41 TFLOP
+against 0.8 GB, about 500 operations per byte, above the card's ~295 in
+bf16 (int8 at b = 1024: 2000 per byte against ~590). What a kernel then has
+to do is keep the tensor cores fed, and the (B, N) score matrix out of
+device memory. The ``wgmma`` variant (``csrc/gmax_wgmma.cu``) runs the
+product as ``wgmma.mma_async`` from shared memory: a block keeps its 128
+queries resident at full depth and streams the corpus through a ring of
+TMA-filled, 128-byte-swizzled tiles handed over by ``mbarrier``s, one
+persistent block per SM walking a range of corpus groups; each thread
+reduces its own columns of a group in registers and writes the maxes once.
+The ``mma`` variant (``csrc/gmax.cu``: ``mma.sync`` fed by ``cp.async``,
+one block per (query tile, group)) streams any depth and serves the shapes
+the first does not take. :func:`kernel_variant` is the rule: a row of at
+most 1536 bytes (12 boxes of 128 bytes: d <= 768 in bf16, d <= 1536 in
+int8) leaves room for the ring beside the query tile and goes to ``wgmma``;
+a deeper one goes to ``mma``. See the sources for the tiling.
 
 Each wrapper takes its plain PyTorch version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches and nothing else.
+launches by wrapper and ``LAUNCHES_BY_VARIANT`` the same launches by
+variant; neither counts anything else.
 """
 
 from __future__ import annotations
@@ -64,16 +75,35 @@ from hyperdb_tpu_torch.ops.ranking import (
 GROUP = 128  # rows per group; the kernel's corpus block
 
 LAUNCHES = {"gmax_f_sub": 0, "gmax_f": 0, "gmax_int8": 0, "gmax_jaccard": 0}
+LAUNCHES_BY_VARIANT = {"wgmma": 0, "mma": 0}
+
+# the wgmma variant keeps a 128-query tile resident at full depth beside a
+# ring of corpus tiles: at most 12 boxes of 128 bytes of depth fit
+WGMMA_MAX_ROW_BYTES = 12 * 128
 
 NEG_INF = float("-inf")
 
-# the `kind` argument of csrc/gmax.cu's gmax_scan
+# the `kind` argument of the two C entry points
 _KIND_F, _KIND_INT8, _KIND_JACCARD = 0, 1, 2
 
+# variant -> (source under csrc/, C entry point); both take the same arguments
+_VARIANTS = {"wgmma": ("gmax_wgmma", "gmax_scan_wgmma"), "mma": ("gmax", "gmax_scan")}
 
-def _scan_fn():
-    lib = cuda_build.load("gmax")
-    fn = lib.gmax_scan
+
+def kernel_variant(n: int, d: int, itemsize: int) -> str:
+    """Which variant scans an (n, d) corpus of ``itemsize``-byte elements:
+    ``"wgmma"`` while a row is at most ``WGMMA_MAX_ROW_BYTES`` deep, else
+    ``"mma"``. Shapes neither kernel takes (n not a multiple of 128, a row
+    that is not a multiple of 16 bytes) raise."""
+    row_bytes = d * itemsize
+    if n <= 0 or n % GROUP or row_bytes <= 0 or row_bytes % 16:
+        raise ValueError(f"unsupported shapes: corpus ({n}, {d}) of {itemsize}-byte elements")
+    return "wgmma" if row_bytes <= WGMMA_MAX_ROW_BYTES else "mma"
+
+
+def _scan_fn(variant: str):
+    source, entry = _VARIANTS[variant]
+    fn = getattr(cuda_build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -97,7 +127,7 @@ def _check(kind, queries, vectors, qaux, vaux, extra, sub):
         qaux.dtype == vaux.dtype == torch.float32 and qaux.shape == (b,) and vaux.shape == (n,)
     ):
         raise ValueError("per-query and per-row terms must be (B,) and (N,) float32 vectors")
-    if vectors.shape[1] != d or n % GROUP or (d * queries.element_size()) % 16:
+    if vectors.shape[1] != d:
         raise ValueError(f"unsupported shapes q={tuple(queries.shape)} v={tuple(vectors.shape)}")
     if sub and not (8 <= sub <= GROUP and GROUP % sub == 0):
         raise ValueError(f"sub ({sub}) must divide {GROUP} and be at least 8")
@@ -106,10 +136,14 @@ def _check(kind, queries, vectors, qaux, vaux, extra, sub):
             raise ValueError("gmax kernels take contiguous 16-byte-aligned tensors")
 
 
-def _launch(kind, queries, vectors, extra, sm, gm, sub, qaux=None, vaux=None):
-    fn = _scan_fn()  # builds on first use; raises if the library cannot be built
-    _check(kind, queries, vectors, qaux, vaux, extra, sub)
+def _launch(kind, queries, vectors, extra, sm, gm, sub, qaux=None, vaux=None, _variant=None):
+    """One stage-1 scan into ``sm`` / ``gm``. ``_variant`` forces a variant
+    (timing one against the other on the card); its C entry point refuses a
+    shape it does not take, which raises here."""
     b, d = queries.shape
+    variant = _variant or kernel_variant(vectors.shape[0], d, queries.element_size())
+    fn = _scan_fn(variant)  # builds on first use; raises if the library cannot be built
+    _check(kind, queries, vectors, qaux, vaux, extra, sub)
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     rc = fn(
         kind, queries.data_ptr(), vectors.data_ptr(),
@@ -121,7 +155,8 @@ def _launch(kind, queries, vectors, extra, sm, gm, sub, qaux=None, vaux=None):
         b, vectors.shape[0], d, sub, stream,
     )
     if rc:
-        raise RuntimeError(f"gmax_scan launch failed: cudaError {rc}")
+        raise RuntimeError(f"{_VARIANTS[variant][1]} launch failed: cudaError {rc}")
+    LAUNCHES_BY_VARIANT[variant] += 1
 
 
 # ---------------------------------------------------------------- plain
@@ -276,7 +311,9 @@ def gmax_jaccard(queries, vectors, q_sum, aux, extra):
             against an empty row is 0/0 -> -inf).
 
     Returns: (B, N/128) f32 group maxes, bitwise those of
-    :func:`gmax_jaccard_plain` (exact integer counts, IEEE division).
+    :func:`gmax_jaccard_plain` (exact integer counts, IEEE division; the
+    ``wgmma`` variant divides without a branch, which rounds as IEEE division
+    does for counts below 2^11, all its depths allow).
     """
     if queries.device.type == "cpu":
         return gmax_jaccard_plain(queries, vectors, q_sum, aux, extra)

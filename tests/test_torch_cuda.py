@@ -8,6 +8,11 @@ moves scores of magnitude <= 1 by a few f32 ulps (~1e-7 each); -inf positions mu
 ``gmax_int8`` and ``gmax_jaccard`` must EQUAL their plain versions: their
 products are exact integers and their epilogues are the same sequence of
 IEEE f32 operations, with no multiply-add contracted.
+The stage-1 scans exist in two variants (``wgmma`` fed by TMA, ``mma.sync``
+fed by ``cp.async``), chosen by ``gmax.kernel_variant``: the shapes below
+stress the first (ragged query tiles, depths that end inside a 128-byte
+box, the deepest resident query tile and one past it) and hold each variant
+to the plain versions and to the other.
 ``gmax_l1`` and ``gmax_l1t`` sum d terms |v - q| in f32 in another order
 than torch's ``sum(-1)``: rtol 1e-5 plus atol 1e-4 on distances of
 magnitude ~d; -inf / +inf positions must match exactly.
@@ -272,6 +277,203 @@ def test_metric_db_on_card_matches_cpu(dev, monkeypatch, metric, kernel):
         assert G.LAUNCHES == before
     pi, pv = cpu.query_batch_arrays(q, top_k=10, metric=metric, **kw)
     assert np.abs(gv - pv).max() <= ATOL and (gi == pi).mean() > 0.99
+
+
+STRESS_B = [1, 63, 64, 77, 128, 129, 640]
+STRESS_D = [40, 64, 128, 384, 392, 768, 1024]  # 392: a ragged box; 1024: past the resident tile
+STRESS_N = [256, 1024, 4096]
+STRESS = [
+    (b, STRESS_N[(i + j) % 3], d) for i, b in enumerate(STRESS_B) for j, d in enumerate(STRESS_D)
+]
+
+
+def _stress_inputs(dev, b, n, d, seed=0):
+    """Unit-norm rows and queries with ties, a NaN row, a NaN group, a masked
+    group and recency, placed so that a 256-row corpus holds them all (its
+    two groups are then the masked one and a live one)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    v[5] = v[3]  # exact tie inside one subgroup
+    v[77] = np.nan  # a NaN row
+    mask = rng.random(n) < 0.9
+    mask[128:256] = False  # one whole group masked
+    if n > 256:
+        v[300] = v[40]  # exact tie across groups
+        v[n - 128 :] = np.nan  # a whole NaN group, the last one
+    rec = (rng.random(n) * 0.05).astype(np.float32)
+    extra = G.make_extra(
+        n, torch.from_numpy(mask).to(dev), torch.from_numpy(rec).to(dev), device=dev
+    )
+    return torch.from_numpy(q).to(dev).bfloat16(), torch.from_numpy(v).to(dev).bfloat16(), extra
+
+
+def _launch_variant(variant, kind, q, v, extra, sub=0, group=True, qaux=None, vaux=None):
+    """One scan through ``variant`` whatever the shape rule says."""
+    b, n = q.shape[0], v.shape[0]
+    sm = torch.empty((b, n // sub), dtype=torch.float32, device=q.device) if sub else None
+    gm = torch.empty((b, n // 128), dtype=torch.float32, device=q.device) if group else None
+    G._launch(kind, q, v, extra, sm, gm, sub, qaux=qaux, vaux=vaux, _variant=variant)
+    torch.cuda.synchronize()
+    return gm, sm
+
+
+@pytest.mark.parametrize("b,n,d", STRESS)
+def test_float_scans_over_stress_shapes(dev, b, n, d):
+    """``gmax_f_sub`` (single and dual) and ``gmax_f`` through the variant the
+    rule picks, against the plain versions and against the other variant."""
+    q, v, extra = _stress_inputs(dev, b, n, d, seed=b + d)
+    variant = G.kernel_variant(n, d, 2)
+    assert variant == ("wgmma" if d <= 768 else "mma")
+    before = dict(G.LAUNCHES_BY_VARIANT)
+    gm, sm = G.gmax_f_sub(q, v, extra, sub=32, dual=False)
+    gm_d, sm_d = G.gmax_f_sub(q, v, extra, sub=32, dual=True)
+    gm_f = G.gmax_f(q, v, extra)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES_BY_VARIANT[variant] == before[variant] + 3
+    assert sum(G.LAUNCHES_BY_VARIANT.values()) == sum(before.values()) + 3
+    want_gm, want_sm = G.gmax_f_sub_plain(q, v, extra, sub=32)
+    _same(sm, want_sm)
+    _same(gm, want_gm)
+    _same(gm_f, want_gm)
+    assert torch.equal(sm_d, sm) and torch.equal(gm_d, gm) and torch.equal(gm_f, gm)
+    assert torch.isneginf(gm[:, 1]).all()  # the masked group
+    if n > 256:
+        assert torch.isneginf(gm[:, -1]).all()  # the NaN group
+    # the mma.sync variant takes every depth: hold the two against each other
+    old_gm, old_sm = _launch_variant("mma", G._KIND_F, q, v, extra, sub=32)
+    _same(sm, old_sm)
+    _same(gm, old_gm)
+
+
+@pytest.mark.parametrize("sub", [8, 16, 32, 64])
+@pytest.mark.parametrize("dual", [True, False])
+@pytest.mark.parametrize("b,n,d", [(129, 1024, 392), (640, 4096, 384)])
+def test_wgmma_subgroups(dev, sub, dual, b, n, d):
+    q, v, extra = _stress_inputs(dev, b, n, d, seed=sub)
+    before = G.LAUNCHES_BY_VARIANT["wgmma"]
+    gm, sm = G.gmax_f_sub(q, v, extra, sub=sub, dual=dual)
+    gm_other, _ = G.gmax_f_sub(q, v, extra, sub=sub, dual=not dual)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES_BY_VARIANT["wgmma"] == before + 2
+    want_gm, want_sm = G.gmax_f_sub_plain(q, v, extra, sub=sub)
+    _same(sm, want_sm)
+    _same(gm, want_gm)
+    assert torch.equal(gm, gm_other)  # dual and single group maxes, bit for bit
+    assert torch.equal(gm, sm.view(b, -1, 128 // sub).amax(-1))
+
+
+def test_wgmma_many_items_with_odd_tile_counts(dev):
+    """More (query tile, corpus range) items than the card has SMs, three
+    groups to an item: a block then reloads its query tile between items and
+    its two warpgroups swap which takes an item's first group."""
+    b, n, d = 128 * 150 + 5, 384, 64
+    q, v, extra = _stress_inputs(dev, b, n, d, seed=11)
+    gm, sm = G.gmax_f_sub(q, v, extra, sub=32, dual=True)
+    torch.cuda.synchronize()
+    want_gm, want_sm = G.gmax_f_sub_plain(q, v, extra, sub=32)
+    _same(sm, want_sm)
+    _same(gm, want_gm)
+    old_gm, old_sm = _launch_variant("mma", G._KIND_F, q, v, extra, sub=32)
+    _same(sm, old_sm)
+    _same(gm, old_gm)
+
+
+def test_wgmma_refuses_a_depth_past_its_rule(dev):
+    """Forced onto a shape it does not take, the wgmma entry point refuses;
+    nothing else steps in."""
+    q, v, extra = _stress_inputs(dev, 64, 256, 1024)
+    before = dict(G.LAUNCHES_BY_VARIANT)
+    with pytest.raises(RuntimeError, match="gmax_scan_wgmma launch failed"):
+        _launch_variant("wgmma", G._KIND_F, q, v, extra, sub=32)
+    assert G.LAUNCHES_BY_VARIANT == before
+
+
+@pytest.mark.parametrize(
+    "b,n,d",
+    [(1, 256, 64), (63, 1024, 48), (77, 4096, 128), (129, 1024, 384), (640, 4096, 400),
+     (128, 256, 768), (64, 1024, 1536), (129, 256, 1552), (640, 1024, 2048)],
+)
+def test_int8_scan_over_stress_shapes(dev, b, n, d):
+    rng = np.random.default_rng(b + d)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    v[5] = 0.0  # zero-scale row: 0 + extra, not NaN
+    v[n - 128 :] = 0.0  # a whole zero-scale group
+    v_i8, sc = Q.quantize_rows(v)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    q[0] = 0.0
+    q_i8, q_scale = Q._quantize_device(q)
+    mask = rng.random(n) < 0.9
+    mask[128:256] = False
+    rec = (rng.random(n) * 0.05).astype(np.float32)
+    extra = G.make_extra(
+        n, torch.from_numpy(mask).to(dev), torch.from_numpy(rec).to(dev), device=dev
+    )
+    v_t, sc_t = torch.from_numpy(v_i8).to(dev), torch.from_numpy(sc).to(dev)
+    variant = G.kernel_variant(n, d, 1)
+    assert variant == ("wgmma" if d <= 1536 else "mma")
+    before = G.LAUNCHES_BY_VARIANT[variant]
+    got = G.gmax_int8(q_i8, q_scale, v_t, sc_t, extra)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES_BY_VARIANT[variant] == before + 1
+    assert torch.equal(got, G.gmax_int8_plain(q_i8, q_scale, v_t, sc_t, extra))
+    assert torch.isneginf(got[:, 1]).all()
+    old, _ = _launch_variant("mma", G._KIND_INT8, q_i8, v_t, extra, qaux=q_scale, vaux=sc_t)
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize(
+    "b,n,d", [(1, 256, 64), (63, 1024, 40), (129, 4096, 384), (640, 1024, 392), (77, 256, 768),
+              (128, 1024, 1024)],
+)
+def test_jaccard_scan_over_stress_shapes(dev, b, n, d):
+    rng = np.random.default_rng(b + d)
+    vb = (rng.standard_normal((n, d)) > 0).astype(np.float32)
+    vb[5] = 0.0
+    vb[n - 128 :] = 0.0  # a whole group of empty rows
+    qb = (rng.standard_normal((b, d)) > 0).astype(np.float32)
+    qb[0] = 0.0  # an empty query: 0/0 against the empty rows
+    mask = rng.random(n) < 0.9
+    mask[128:256] = False
+    extra = G.make_extra(n, torch.from_numpy(mask).to(dev), device=dev)
+    qq, vv = torch.from_numpy(qb).to(dev).bfloat16(), torch.from_numpy(vb).to(dev).bfloat16()
+    q_sum, aux = torch.from_numpy(qb.sum(1, keepdims=True)).to(dev), torch.from_numpy(vb.sum(1)).to(dev)
+    variant = G.kernel_variant(n, d, 2)
+    before = G.LAUNCHES_BY_VARIANT[variant]
+    got = G.gmax_jaccard(qq, vv, q_sum, aux, extra)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES_BY_VARIANT[variant] == before + 1
+    assert torch.equal(got, G.gmax_jaccard_plain(qq, vv, q_sum, aux, extra))
+    assert torch.isneginf(got[0, -1]) and torch.isneginf(got[:, 1]).all()
+    old, _ = _launch_variant(
+        "mma", G._KIND_JACCARD, qq, vv, extra, qaux=q_sum.reshape(b).contiguous(), vaux=aux
+    )
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("dens_q, dens_v", [(0.5, 0.5), (0.05, 0.9), (0.9, 0.05), (0.01, 0.01), (0.99, 0.99)])
+@pytest.mark.parametrize("b,n,d", [(300, 2048, 384), (129, 1024, 768), (77, 1024, 40)])
+def test_jaccard_division_over_count_ranges(dev, dens_q, dens_v, b, n, d):
+    """The wgmma variant divides the counts without the branch of IEEE
+    division's slow path; over sparse, dense and mixed rows (intersections
+    from 0 to d, unions up to 2d, 0/0 and a/a among them) its group maxes
+    equal the plain version's bit for bit."""
+    rng = np.random.default_rng(int(1000 * dens_q) + d)
+    pv = np.clip(2 * dens_v * rng.random((n, 1)), 0, 1)  # per-row densities: counts cover the range
+    pq = np.clip(2 * dens_q * rng.random((b, 1)), 0, 1)
+    vb = (rng.random((n, d)) < pv).astype(np.float32)
+    qb = (rng.random((b, d)) < pq).astype(np.float32)
+    vb[5], vb[7], qb[0], qb[1] = 0.0, 1.0, 0.0, 1.0  # empty and full rows and queries
+    mask = rng.random(n) < 0.9
+    extra = G.make_extra(n, torch.from_numpy(mask).to(dev), device=dev)
+    qq, vv = torch.from_numpy(qb).to(dev).bfloat16(), torch.from_numpy(vb).to(dev).bfloat16()
+    q_sum, aux = torch.from_numpy(qb.sum(1, keepdims=True)).to(dev), torch.from_numpy(vb.sum(1)).to(dev)
+    assert G.kernel_variant(n, d, 2) == "wgmma"
+    got = G.gmax_jaccard(qq, vv, q_sum, aux, extra)
+    torch.cuda.synchronize()
+    assert torch.equal(got, G.gmax_jaccard_plain(qq, vv, q_sum, aux, extra))
 
 
 def _l1_inputs(dev, b, n, d, bf16, seed=0):

@@ -182,3 +182,57 @@ def test_grouped_gmax_refuses_out_of_contract(qdt, vdt, n, k):
     assert not G.supported(q, v, k)
     with pytest.raises(ValueError, match="bf16"):
         G.rank_top_k_grouped_gmax(q, v, k)
+
+
+@pytest.mark.parametrize(
+    "n, d, itemsize, want",
+    [
+        (1 << 20, 384, 2, "wgmma"),  # the main path's bf16 plane: 6 boxes of 128 bytes
+        (1 << 20, 384, 1, "wgmma"),  # its int8 plane: 3 boxes
+        (256, 8, 2, "wgmma"),  # one ragged box
+        (1024, 40, 2, "wgmma"),  # 80 bytes: less than one box
+        (4096, 392, 2, "wgmma"),  # 784 bytes: a ragged seventh box
+        (4096, 768, 2, "wgmma"),  # 1536 bytes: the deepest resident query tile
+        (4096, 1536, 1, "wgmma"),  # the same depth in int8
+        (4096, 776, 2, "mma"),  # one 16-byte step past it
+        (4096, 1024, 2, "mma"),
+        (4096, 1552, 1, "mma"),
+        (4096, 4096, 1, "mma"),
+    ],
+)
+def test_kernel_variant_rule(n, d, itemsize, want):
+    """The one rule on shapes: a row of at most 12 boxes of 128 bytes goes to
+    the wgmma variant, a deeper one to mma.sync; the batch does not matter."""
+    assert G.kernel_variant(n, d, itemsize) == want
+    assert (d * itemsize <= G.WGMMA_MAX_ROW_BYTES) == (want == "wgmma")
+
+
+@pytest.mark.parametrize(
+    "n, d, itemsize",
+    [
+        (1000, 384, 2),  # N % 128 != 0
+        (0, 384, 2),
+        (1024, 12, 2),  # 24-byte rows: not a multiple of 16
+        (1024, 40, 1),  # int8 rows need d % 16 == 0
+        (1024, 0, 2),
+    ],
+)
+def test_kernel_variant_refuses_what_neither_kernel_takes(n, d, itemsize):
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        G.kernel_variant(n, d, itemsize)
+
+
+def test_variant_counter_and_entry_points():
+    """``LAUNCHES`` keeps its four keys; the second counter has one key per
+    variant, each with a source under csrc/ and a C entry point; CPU tensors
+    move neither counter."""
+    from hyperdb_tpu_torch.ops import cuda_build
+
+    assert set(G.LAUNCHES) == {"gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard"}
+    assert set(G.LAUNCHES_BY_VARIANT) == set(G._VARIANTS) == {"wgmma", "mma"}
+    for source, entry in G._VARIANTS.values():
+        assert source in cuda_build.sources()
+        assert f'extern "C" int {entry}(' in (cuda_build.CSRC / f"{source}.cu").read_text()
+    before = dict(G.LAUNCHES), dict(G.LAUNCHES_BY_VARIANT)
+    G.gmax_f_sub(torch.ones(8, 16).bfloat16(), torch.ones(256, 16).bfloat16(), torch.zeros(256))
+    assert (G.LAUNCHES, G.LAUNCHES_BY_VARIANT) == before

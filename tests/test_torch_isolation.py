@@ -180,17 +180,69 @@ def test_missing_library_file_raises(no_kernel_library, monkeypatch, tmp_path):
 
 
 def test_build_flags_and_sources():
-    # gmax.cu holds four kernels (gmax_f_sub, gmax_f, gmax_int8, gmax_jaccard
-    # are instantiations of one template), l1.cu the two manhattan ones
-    assert cuda_build.sources() == ["gmax", "l1"]
+    # the four stage-1 scans (gmax_f_sub, gmax_f, gmax_int8, gmax_jaccard) are
+    # instantiations of one template in each of two variants: gmax_wgmma.cu
+    # (wgmma fed by TMA) and gmax.cu (mma.sync fed by cp.async); l1.cu holds
+    # the two manhattan kernels
+    assert cuda_build.sources() == ["gmax", "gmax_wgmma", "l1"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     # no fast-math: the jaccard division and the NaN scrub must be IEEE
     assert not any("fast" in flag for flag in cuda_build.NVCC_FLAGS)
     src = (cuda_build.CSRC / "gmax.cu").read_text()
     for needle in ("m16n8k32.row.col.s32.s8.s8.s32", "__fmul_rn", "__fdiv_rn", "KIND_JACCARD"):
         assert needle in src
+    new = (cuda_build.CSRC / "gmax_wgmma.cu").read_text()
+    for needle in (
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
+        "cp.async.bulk.tensor", "mbarrier", "setmaxnreg", "const __grid_constant__ CUtensorMap",
+        "cuTensorMapEncodeTiled", "__fmul_rn", "KIND_JACCARD",
+        "hyperdb_tpu/ops/pallas_gmax.py", "Bound on the H100: operations",
+    ):
+        assert needle in new, needle
+    for text in (src, new):
+        for banned in ("#include <torch", "ATen", "cublas", "cutlass/gemm/device", "later work"):
+            assert banned not in text, banned
     p = cuda_build.library_path("gmax")
     assert p.parent == cuda_build.BUILD_DIR and p.name.startswith("libgmax-")
+    assert cuda_build.library_path("gmax_wgmma").name.startswith("libgmax_wgmma-")
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "mma"])
+def test_either_variant_raises_without_kernel(no_kernel_library, monkeypatch, variant):
+    """Both variants reach the loader and raise when their library cannot be
+    built, by the shape rule and when forced; neither gives way to the other
+    or to a plain version."""
+    for name in ("gmax_f_plain", "gmax_f_sub_plain", "gmax_int8_plain", "gmax_jaccard_plain"):
+        monkeypatch.setattr(G, name, lambda *a, **kw: pytest.fail("plain version"))
+    d = 128 if variant == "wgmma" else 1024  # 256- and 2048-byte rows
+    assert G.kernel_variant(1024, d, 2) == variant
+    loaded = []
+    real_load = cuda_build.load
+    monkeypatch.setattr(cuda_build, "load", lambda name: loaded.append(name) or real_load(name))
+    q = torch.empty((128, d), dtype=torch.bfloat16, device="meta")
+    v = torch.empty((1024, d), dtype=torch.bfloat16, device="meta")
+    extra = torch.empty((1024,), dtype=torch.float32, device="meta")
+    before = dict(G.LAUNCHES), dict(G.LAUNCHES_BY_VARIANT)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        G.gmax_f_sub(q, v, extra)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        G.gmax_f(q, v, extra)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        G.gmax_jaccard(q, v, torch.empty((128, 1), device="meta"), extra, extra)
+    q8 = torch.empty((128, 2 * d), dtype=torch.int8, device="meta")
+    v8 = torch.empty((1024, 2 * d), dtype=torch.int8, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        G.gmax_int8(q8, torch.empty((128,), device="meta"), v8, extra, extra)
+    source = G._VARIANTS[variant][0]
+    assert loaded == [source] * 4
+    # forced: the other variant's loader is reached whatever the rule says
+    other = "mma" if variant == "wgmma" else "wgmma"
+    sm = torch.empty((128, 32), dtype=torch.float32, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        G._launch(G._KIND_F, q, v, extra, sm, None, 32, _variant=other)
+    assert loaded[-1] == G._VARIANTS[other][0]
+    assert (dict(G.LAUNCHES), dict(G.LAUNCHES_BY_VARIANT)) == before
 
 
 def test_l1_source_carries_its_note():
