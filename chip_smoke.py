@@ -71,7 +71,24 @@ Phases, one or a few lines each on standard output:
    (``HyperDB.from_state``; padded to 262144 documents over the 2^20-row
    plane), cosine and manhattan at b = 64, with and
    without a metadata filter; document ids tie-aware equal to a reference
-   that scores every row and takes each document's best.
+   that scores every row and takes each document's best;
+11. path E, text and persistence: the in-repo ``local-384`` encoder
+   (``MiniLMEmbedder.from_local_assets``, full width) on the card against
+   the same encoder on the CPU over 1024 seeded texts (largest element
+   difference and smallest cosine within ``ENC_MAX_ABS``/``ENC_MIN_COS``, at
+   both settings of cuBLAS's reduced-precision bf16 reduction), a b = 512
+   forward timed beside its bound; a float16 text DB of 2^18 demo-shaped
+   documents (descriptions of 20-120 Zipf-drawn vocab words, none chunks)
+   built through ``make_embedding_function``, docs/s split into tokenise,
+   encode and commit; text batches through
+   ``generate_query_vectors_batch_device`` + ``query_batch_arrays`` at
+   b = 512 and 4096 (``gmax_f_sub`` on the ``wgmma`` variant, counters set
+   to 0 just before), b = 512 through the host path (identical answers) and
+   b = 1 through ``query``, ids tie-aware against the exact reference over
+   the DB's plane and the card's own query embeddings, each timed with its
+   breakdown; checkpoint and ``.pickle.gz`` round trips into fresh DBs on the
+   card, answers bit-identical; the default (hybrid, 4480-d) embedder over
+   16384 documents and a b = 512 text batch on the plain route.
 
 Then a JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
@@ -83,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -119,6 +137,13 @@ L1_SOURCE = "hyperdb_tpu_torch/csrc/l1.cu"
 L1_RTOL, L1_ATOL = 1e-5, 1e-4  # group maxes of -L1: another d-sum order than torch's
 MANHATTAN_ATOL = 1e-8  # scores 1/(1 + L1) ~ 2e-3 from distances equal within ~1e-4 in ~430
 ROWS_PER_DOC = 4  # path D
+TEXT_DOCS = 1 << 18  # path E: documents of the text DB (no document chunks)
+ENC_TEXTS = 1024  # path E: texts of the card-against-CPU encoder check
+DEFAULT_EMB_DOCS = 16384  # path E: documents embedded by the default (hybrid) embedder
+# card against CPU, local-384 encoder, unit rows: largest element difference
+# and smallest row cosine (6.7e-4 and 0.99999 measured on an H100 over this
+# script's 1024 texts, PERF.md)
+ENC_MAX_ABS, ENC_MIN_COS = 5e-3, 0.9999
 NEG_INF = float("-inf")
 
 
@@ -748,19 +773,22 @@ def log_breakdown(label, parts, wall, card):
     )
 
 
-def stage_breakdown(db, q: np.ndarray, wall: float, card: str, pearson: bool = False) -> None:
+def stage_breakdown(db, q: np.ndarray, wall: float, card: str, pearson: bool = False,
+                    label: str = "cosine", extra_parts: dict | None = None) -> dict:
     """Device time of each stage of one main-path batch (the functions the
     route calls, on the same inputs), beside the batch's host-clock time;
     the difference is host work and transfers. ``pearson``: the same dot
     route over the centered plane (the queries are centered on the host in
-    NumPy, so there is no device pre-step)."""
+    NumPy, so there is no device pre-step). ``extra_parts`` are measured
+    steps before the scan (the text path's tokenise and encode), printed
+    first. Returns the parts."""
     from hyperdb_tpu_torch.ops import gmax as G
     from hyperdb_tpu_torch.ops import metrics as M
 
     dv = db._store.device_view(db.source_indices)
     n = dv["n_pad"]
     b, k = q.shape[0], 16  # k padded to a power of two, as the engine does
-    parts = {}
+    parts: dict = {}
     if pearson:
         plane = db._store.pearson_view(db.source_indices)["rows_pearson"]
         qq = torch.from_numpy(M.pearson_center_normalize(q.astype(np.float32))).cuda().to(plane.dtype)
@@ -779,7 +807,9 @@ def stage_breakdown(db, q: np.ndarray, wall: float, card: str, pearson: bool = F
         "stage3_rescore": cuda_ms(lambda: G._rescore(qq, plane, extra, sidx, SUB), 3, 1),
         "stage3_topk": cuda_ms(lambda: G.finish_candidates(cs, sidx, b, k, SUB), 3, 1),
     })
-    log_breakdown(f"{'pearson' if pearson else 'cosine'} b={b}", parts, wall, card)
+    parts = {**(extra_parts or {}), **parts}
+    log_breakdown(f"{'pearson' if pearson else label} b={b}", parts, wall, card)
+    return parts
 
 
 def stage_breakdown_metric(db, metric: str, q: np.ndarray, wall: float, card: str) -> None:
@@ -1284,6 +1314,341 @@ def path_chunked(corpus, seed: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- path E: text
+
+
+def vocab_words() -> list[str]:
+    """The whole-word (alphabetic, not ``##``-continued) tokens of the
+    in-repo encoder's WordPiece vocab, in vocab order."""
+    from hyperdb_tpu_torch.models.minilm import ASSETS_DIR
+
+    with open(f"{ASSETS_DIR}/vocab.txt", encoding="utf-8") as f:
+        return [w for w in (line.rstrip("\n") for line in f) if w.isalpha()]
+
+
+def zipf_texts(rng, words: list[str], n: int, lo: int, hi: int) -> list[str]:
+    """``n`` texts of ``lo``-``hi`` words drawn from ``words`` by a Zipf law
+    (rank r with weight 1/r)."""
+    p = 1.0 / np.arange(1, len(words) + 1)
+    lens = rng.integers(lo, hi + 1, n)
+    draws = rng.choice(len(words), size=int(lens.sum()), p=p / p.sum())
+    bounds = np.concatenate([[0], np.cumsum(lens)])
+    w = np.asarray(words, dtype=object)
+    return [" ".join(w[draws[a:b]]) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def text_documents(rng, words, n: int) -> list[dict]:
+    """Demo-shaped documents: a name and an info dict with a type and a
+    20-120-word description, short enough that none chunks."""
+    kinds = ("fire", "water", "grass", "psychic", "ghost", "dragon", "steel", "fairy")
+    return [
+        {"name": f"item{i}", "info": {"type": kinds[i % len(kinds)], "description": d}}
+        for i, d in enumerate(zipf_texts(rng, words, n, 20, 120))
+    ]
+
+
+def encoder_bound_ms(tokens: int, seq: int, cfg) -> tuple[float, str]:
+    """Least time of one encoder forward over ``tokens`` (padded) tokens of
+    sequences of ``seq``: its multiply-adds (per token and layer, the four
+    h x h and two h x i products and the two attention products of S x h)
+    over the bf16 tensor-core rate; its bytes (weights read once) are far
+    below that."""
+    h, i, layers = cfg.hidden, cfg.intermediate, cfg.layers
+    flops = 2.0 * tokens * layers * (4 * h * h + 2 * h * i + 2 * seq * h)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (2.0 * 12e6 + 8.0 * tokens) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def enc_diff(got: np.ndarray, want: np.ndarray) -> tuple[float, float]:
+    """(largest element difference, smallest row cosine) of two blocks of
+    unit rows."""
+    return float(np.abs(got - want).max()), float((got * want).sum(axis=1).min())
+
+
+def phase_encoder(enc, words, seed: int, card: str) -> None:
+    """E1: the local-384 encoder on the card against the same encoder on
+    the CPU, at both settings of cuBLAS's reduced-precision bf16 reduction,
+    and a 512-text forward timed beside its bound."""
+    from hyperdb_tpu_torch.models.minilm import MiniLMEmbedder
+
+    rng = np.random.default_rng(seed + 80)
+    texts = zipf_texts(rng, words, ENC_TEXTS, 8, 60)
+    cpu_enc = MiniLMEmbedder.from_local_assets(device="cpu")
+    t = time.perf_counter()
+    want = cpu_enc.encode(texts)
+    cpu_s = time.perf_counter() - t
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    diffs = {}
+    try:
+        for setting in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = setting
+            diffs[setting] = enc_diff(enc.encode(texts), want)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    for setting, (max_abs, min_cos) in diffs.items():
+        log(f"path E encoder card vs CPU on {len(texts)} texts, bf16 reduced-precision "
+            f"reduction {setting}: max abs {max_abs:.3g} (limit {ENC_MAX_ABS}), min cosine "
+            f"{min_cos:.7f} (limit {ENC_MIN_COS})")
+    max_abs, min_cos = diffs[flag]
+    if not (max_abs <= ENC_MAX_ABS and min_cos >= ENC_MIN_COS):
+        raise AssertionError(f"encoder on the card off the CPU: {max_abs:.3g} / {min_cos:.6f}")
+    log(f"path E encoder on the CPU: {cpu_s:.1f} s for {len(texts)} texts")
+
+    batch = texts[:512]
+    reps = 5
+    t = time.perf_counter()
+    for _ in range(reps):
+        ids, mask = enc._prep_batch(batch)
+    tok_ms = (time.perf_counter() - t) / reps * 1e3
+    fwd_ms = cuda_ms(lambda: enc._forward(ids, mask), reps=10)
+    bound, by = encoder_bound_ms(ids.size, ids.shape[1], enc.config)
+    log(f"path E encoder forward b=512 seq={ids.shape[1]} ({ids.size} tokens, "
+        f"{int(mask.sum())} live): ms={fwd_ms:.4f} bound_ms={bound:.4f} ({by}) "
+        f"bound/ms={bound / fwd_ms:.3f}; tokenise (host) {tok_ms:.3f} ms [{card}]")
+
+
+def timed(fn, acc: dict, key: str, sync: bool = False):
+    def run(*args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        acc[key] += time.perf_counter() - t
+        return out
+
+    return run
+
+
+def phase_ingest(enc, docs, card: str):
+    """E2: build a float16 text DB through ``make_embedding_function`` over
+    the card's encoder; docs/s split into tokenise (chunker and encoder
+    tokenizer, host), encode (device forward) and commit."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.models.embedder import make_embedding_function
+
+    ef = make_embedding_function(enc, enc.chunk_tokenizer)
+    acc = {"embed": 0.0, "prep": 0.0, "forward": 0.0}
+    timed_ef = timed(ef, acc, "embed")
+    timed_ef.embedder, timed_ef.tokenizer = ef.embedder, ef.tokenizer
+    enc._prep_batch = timed(enc._prep_batch, acc, "prep")
+    enc._forward = timed(enc._forward, acc, "forward", sync=True)
+    try:
+        t = time.perf_counter()
+        db = HyperDB(docs, embedding_function=timed_ef, fp_precision="float16")
+        total = time.perf_counter() - t
+    finally:
+        del enc._prep_batch, enc._forward  # the class's methods again
+    db.embedding_function = ef
+    n = len(docs)
+    if db.size() != n or db.size(with_chunks=True) != n or db.split_info != dict.fromkeys(range(n), 1):
+        raise AssertionError("text ingest: a document chunked or went missing")
+    tokenise = acc["embed"] - acc["forward"]
+    commit = total - acc["embed"]
+    log(f"path E ingest: {n} documents in {total:.2f} s = {n / total:.1f} docs/s; tokenise "
+        f"{tokenise:.2f} s (chunker {acc['embed'] - acc['prep'] - acc['forward']:.2f}, encoder "
+        f"tokenizer {acc['prep']:.2f}), encode {acc['forward']:.2f} s, commit {commit:.2f} s [{card}]")
+    return db
+
+
+def text_stage_parts(db, texts: list[str]) -> tuple[dict, np.ndarray]:
+    """Host tokenise ms (chunker + encoder tokenizer) and device encode ms
+    of one device-path text batch, and its query block on the host."""
+    from hyperdb_tpu_torch.query import engine as E
+
+    enc, prepare = E._default_embed_path(db)
+    t = time.perf_counter()
+    chunks, _, _ = prepare(list(texts))
+    prepped = [enc._prep_batch(chunks[i : i + enc._MAX_BATCH])
+               for i in range(0, len(chunks), enc._MAX_BATCH)]
+    tok_ms = (time.perf_counter() - t) * 1e3
+    enc_ms = sum(cuda_ms(lambda p=p: enc._forward(*p), 3, 1) for p in prepped)
+    block = E.generate_query_vectors_batch_device(db, list(texts))
+    return {"tokenise(host)": tok_ms, "encode": enc_ms}, block[: len(texts)].cpu().numpy()
+
+
+def phase_text_queries(db, words, kernels, seed: int, card: str):
+    """E3: text batches of 8-16 words over the text DB: b = 512 and 4096
+    through the device block (``gmax_f_sub``, wgmma variant), b = 512
+    through the host path, b = 1 through ``query``. Returns the b = 512
+    block with its ids and scores, for the persistence phase."""
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.query import engine as E
+
+    rng = np.random.default_rng(seed + 90)
+    q512, q4k = zipf_texts(rng, words, 512, 8, 16), zipf_texts(rng, words, 4096, 8, 16)
+    dv = db._store.device_view(db.source_indices)
+    plane, n = dv["rows_norm"], db.size()
+    zero_launches(G)
+    block = E.generate_query_vectors_batch_device(db, q512)
+    ids, vals = db.query_batch_arrays(block, top_k=TOP_K, n_valid=512)
+    block4k = E.generate_query_vectors_batch_device(db, q4k)
+    ids4k, vals4k = db.query_batch_arrays(block4k, top_k=TOP_K, n_valid=4096)
+    launches = dict(G.LAUNCHES)
+    by_variant = check_variant(G, "path E")
+    log(f"path E text launches: {json.dumps(launches)} by variant: {json.dumps(by_variant)}")
+    if launches["gmax_f_sub"] < 2 or by_variant["wgmma"] < 2:
+        raise AssertionError("path E: the text batches did not launch gmax_f_sub (wgmma) twice")
+    kernels["gmax_f_sub"]["launches"] += launches["gmax_f_sub"]
+    if block.shape != (512, DIM) or block4k.shape != (4096, DIM) or block.device != dv["row_valid"].device:
+        raise AssertionError("path E: query blocks of the wrong shape or device")
+    q_host = block.cpu().numpy()
+    swaps, err = check_ids("text b=512", ids, vals, plane, n, q_host, TOP_K)
+    log(f"path E text b=512 (device block): ids tie-aware equal to the reference "
+        f"({swaps} tied swaps, score err {err:.3g})")
+    swaps, err = check_ids("text b=4096", ids4k[:512], vals4k[:512], plane, n,
+                           block4k[:512].cpu().numpy(), TOP_K)
+    log(f"path E text b=4096 (device block): first 512 ids tie-aware equal ({swaps} tied swaps, "
+        f"score err {err:.3g})")
+
+    hq = E.generate_query_vectors_batch(db, q512)
+    hids, hvals = db.query_batch_arrays(hq, top_k=TOP_K)
+    if not (np.array_equal(hq, q_host) and np.array_equal(hids, ids) and np.array_equal(hvals, vals)):
+        raise AssertionError("path E: the host text path and the device block disagree")
+    log("path E text b=512 (host path): embeddings, ids and scores identical to the device block")
+    one = db.query(q512[7], top_k=TOP_K)
+    q1 = E.generate_query_vectors_batch(db, [q512[7]])
+    swaps, err = check_ids("text b=1", np.array([[r[2] for r in one]]),
+                           np.array([[r[1] for r in one]], dtype=np.float32), plane, n, q1, TOP_K)
+    log(f"path E text b=1 (query): ids tie-aware equal ({swaps} tied swaps, score err {err:.3g})")
+
+    for texts in (q512, q4k):
+        b = len(texts)
+        wall = wall_ms(lambda: db.query_batch_arrays(
+            E.generate_query_vectors_batch_device(db, texts), top_k=TOP_K, n_valid=b), 5 if b <= 512 else 2)
+        log(f"path E text device block: b={b} ms/batch={wall:.3f} q/s={b / wall * 1e3:.1f} [{card}]")
+        parts, qh = text_stage_parts(db, texts)
+        stage_breakdown(db, qh, wall, card, label="text device block", extra_parts=parts)
+    wall = wall_ms(lambda: db.query_batch_arrays(
+        E.generate_query_vectors_batch(db, q512), top_k=TOP_K), 5)
+    log(f"path E text host path: b=512 ms/batch={wall:.3f} q/s={512 / wall * 1e3:.1f} [{card}]")
+    parts, qh = text_stage_parts(db, q512)
+    stage_breakdown(db, qh, wall, card, label="text host path", extra_parts=parts)
+
+    def single():
+        db.clear_cache()  # the LRU would answer a repeated query
+        return db.query(q512[7], top_k=TOP_K)
+
+    wall = wall_ms(single, 5)
+    parts, _ = text_stage_parts(db, [q512[7]])
+    log(f"path E text query: b=1 ms={wall:.3f} (tokenise {parts['tokenise(host)']:.3f}, encode "
+        f"{parts['encode']:.3f}) [{card}]")
+    return block, ids, vals
+
+
+def phase_default_embedder(docs, words, seed: int, card: str) -> None:
+    """E4: the default embedder (HYPERDB_DEFAULT_EMBEDDER unset: the hybrid
+    of the local encoder and the 4096-d lexical hash, 4480-d) on the card,
+    over 16384 documents; a b = 512 text batch on the plain route."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.query import engine as E
+
+    from hyperdb_tpu_torch.models.embedder import default_embedder
+
+    if "HYPERDB_DEFAULT_EMBEDDER" in os.environ:
+        raise AssertionError("HYPERDB_DEFAULT_EMBEDDER is set: path E4 needs the default")
+    t = time.perf_counter()
+    emb = default_embedder(None, device="cuda")  # the instance the DB below gets (cached)
+    resolve = time.perf_counter() - t
+    acc = {"dense": 0.0, "lexical": 0.0}
+    emb.dense.encode = timed(emb.dense.encode, acc, "dense")
+    emb.lexical.encode = timed(emb.lexical.encode, acc, "lexical")
+    try:
+        t = time.perf_counter()
+        db = HyperDB(docs[:DEFAULT_EMB_DOCS], fp_precision="float16")
+        build = time.perf_counter() - t
+    finally:
+        del emb.dense.encode, emb.lexical.encode
+    if db._embedder() is not emb or type(emb).__name__ != "HybridEmbedder" or db.dim != 384 + 4096:
+        raise AssertionError(f"default embedder: {type(emb).__name__}, dim {db.dim}")
+    log(f"path E default embedder: {type(emb).__name__} ({db.dim}-d, dense part on "
+        f"{emb.dense.device}), resolved in {resolve:.2f} s; {DEFAULT_EMB_DOCS} documents in "
+        f"{build:.2f} s = {DEFAULT_EMB_DOCS / build:.1f} docs/s: dense (tokenise + encode) "
+        f"{acc['dense']:.2f} s, lexical hash (host) {acc['lexical']:.2f} s, rest "
+        f"{build - acc['dense'] - acc['lexical']:.2f} s [{card}]")
+    texts = zipf_texts(np.random.default_rng(seed + 95), words, 512, 8, 16)
+    if E.generate_query_vectors_batch_device(db, texts) is not None:
+        raise AssertionError("the hybrid embedder kept a block on the device")
+    zero_launches(G)
+    q = E.generate_query_vectors_batch(db, texts)
+    ids, vals = db.query_batch_arrays(q, top_k=TOP_K)
+    if any(G.LAUNCHES.values()):
+        raise AssertionError(f"path E default embedder launched a kernel: {G.LAUNCHES}")
+    plane = db._store.device_view(db.source_indices)["rows_norm"]
+    swaps, err = check_ids("hybrid b=512", ids, vals, plane, db.size(), q, TOP_K)
+    log(f"path E hybrid b=512 (plain route, no launch): ids tie-aware equal ({swaps} tied swaps, "
+        f"score err {err:.3g})")
+    embed = wall_ms(lambda: E.generate_query_vectors_batch(db, texts), 3)
+    scan = wall_ms(lambda: db.query_batch_arrays(q, top_k=TOP_K), 5)
+    log(f"path E hybrid text batch: b=512 ms/batch={embed + scan:.3f} (embed on host and card "
+        f"{embed:.3f}, scan {scan:.3f}) [{card}]")
+    del db
+    torch.cuda.empty_cache()
+
+
+def phase_persistence(db, block, ids, vals, card: str) -> None:
+    """E5: the text DB saved as a checkpoint and as .pickle.gz, each loaded
+    into a fresh DB on the card: the b = 512 block's ids and scores must
+    equal the pre-save ones bit for bit."""
+    import shutil
+    from pathlib import Path
+
+    from hyperdb_tpu_torch import HyperDB
+
+    out = Path(__file__).resolve().parent / "build" / "smoke_persist"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        cases = (
+            ("checkpoint", out / "text.ckpt", {"format": "checkpoint"}, {},
+             {"format": "checkpoint", "preload_ann_into_memory": True}),
+            ("pickle.gz", out / "text.pickle.gz", {}, {"fp_precision": "float16"}, {}),
+        )
+        for name, path, save_kw, make_kw, load_kw in cases:
+            t = time.perf_counter()
+            db.save(str(path), **save_kw)
+            save_s = time.perf_counter() - t
+            files = path.rglob("*") if path.is_dir() else out.glob(path.name + "*")  # + .ann
+            size = sum(f.stat().st_size for f in files if f.is_file())
+            fresh = HyperDB(device="cuda", **make_kw)
+            t = time.perf_counter()
+            fresh.load(str(path), **load_kw)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            got_ids, got_vals = fresh.query_batch_arrays(block, top_k=TOP_K, n_valid=512)
+            if not (np.array_equal(got_ids, ids) and np.array_equal(got_vals, vals)):
+                raise AssertionError(f"path E {name}: answers after the round trip differ")
+            if fresh.documents != db.documents or fresh.split_info != db.split_info:
+                raise AssertionError(f"path E {name}: state differs after the round trip")
+            log(f"path E persistence {name}: save {save_s:.2f} s, load {load_s:.2f} s, "
+                f"{size / 2**20:.1f} MiB; b=512 ids and scores bit-identical [{card}]")
+            del fresh
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def path_text(kernels, seed: int, card: str) -> None:
+    """Path E: the text path and persistence on the card."""
+    from hyperdb_tpu_torch.models.minilm import MiniLMEmbedder
+
+    words = vocab_words()
+    t = time.perf_counter()
+    enc = MiniLMEmbedder.from_local_assets(device="cuda")
+    log(f"path E local-384 encoder: {len(words)} whole-word vocab entries; loaded on "
+        f"{enc.device} in {time.perf_counter() - t:.2f} s")
+    phase_encoder(enc, words, seed, card)
+    t = time.perf_counter()
+    docs = text_documents(np.random.default_rng(seed + 85), words, TEXT_DOCS)
+    log(f"path E documents: {len(docs)} made in {time.perf_counter() - t:.1f} s")
+    db = phase_ingest(enc, docs, card)
+    block, ids, vals = phase_text_queries(db, words, kernels, seed, card)
+    phase_persistence(db, block, ids, vals, card)
+    del db, block
+    torch.cuda.empty_cache()
+    phase_default_embedder(docs, words, seed, card)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1400,6 +1765,10 @@ def main() -> int:
 
     # 10. path D: the chunked doc-level branch
     path_chunked(corpus, args.seed, card)
+    del corpus, docs
+
+    # 11. path E: text and persistence
+    path_text(kernels, args.seed, card)
 
     names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard", "gmax_l1", "gmax_l1t")
     for name in names:

@@ -1,13 +1,17 @@
 """HyperDB — the public DB facade of the PyTorch/CUDA port.
 
-Counterpart of ``hyperdb_tpu/core/db.py`` for the precomputed-vectors
-surface: the constructor, ``add(documents, vectors=...)`` (one document
-may bring several rows: a chunked corpus), ``remove_document``, ``query``,
-``query_batch``, ``query_batch_arrays``, ``size``, ``dict`` and ``stats``.
-The host keeps the documents and bookkeeping; scoring runs on ``device``
-(``"cuda"`` unless the caller asks for ``"cpu"``). Text embedding (and the
-text chunker with it), persistence, IVF and projscan raise
-``NotImplementedError`` until their slices (ROADMAP.md queue 1).
+Counterpart of ``hyperdb_tpu/core/db.py``: the constructor over text
+documents (chunked and embedded) or precomputed vectors, ``add`` /
+``add_document`` / ``add_documents`` / ``add_stream`` / ``commit_pending``,
+``remove_document``, ``query``, ``query_batch``, ``query_batch_arrays``,
+``set_ann_metric``, ``save`` / ``load`` (pickle[.gz], json, sqlite and the
+binary checkpoint, file-compatible with the JAX package), ``warmup``,
+``size``, ``dict``, ``stats`` and the reference's helper methods. The host
+keeps the documents and bookkeeping; the encoder and the scans run on
+``device`` (``"cuda"`` unless the caller asks for ``"cpu"``). The IVF and
+projscan indexes raise ``NotImplementedError`` until their slice
+(ROADMAP.md queue 1, item 10).
+
 ``device_precision`` selects the device planes: ``"auto"``, ``"int8"``
 (int8 scan, exact rescore against the float plane) or ``"int8-pure"``
 (int8 planes only; dot and cosine).
@@ -15,17 +19,22 @@ text chunker with it), persistence, IVF and projscan raise
 
 from __future__ import annotations
 
+import collections
 import datetime
 import os
+import string
+import zipfile
 from typing import Iterable
 
 import numpy as np
 import torch
 
 from hyperdb_tpu_torch.config import CONFIG
+from hyperdb_tpu_torch.core import chunker as _chunker
 from hyperdb_tpu_torch.core import nested as _nested
 from hyperdb_tpu_torch.core.store import VectorStore
 from hyperdb_tpu_torch.index.flat import FlatIndex
+from hyperdb_tpu_torch.persist import io as _persist
 from hyperdb_tpu_torch.query import engine as _engine
 from hyperdb_tpu_torch.query import filters as _filters
 from hyperdb_tpu_torch.utils.lru import LRUCache
@@ -50,8 +59,11 @@ def resolve_device(device=None) -> torch.device:
             )
         device = "cuda"
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not available")
+        if device.index is None:  # "cuda" names the current card: make it explicit
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -66,7 +78,9 @@ class HyperDB:
     embedding_function, fp_precision, add_timestamp, metadata_keys,
     ann_metric, n_trees, cache_size, device_precision (``"auto"``: bf16
     planes for float16 masters, f32 otherwise; ``"int8"``; ``"int8-pure"``;
-    default from ``HYPERDB_DEVICE_PRECISION``); plus ``device``.
+    default from ``HYPERDB_DEVICE_PRECISION``); plus ``device``. Documents
+    without vectors are chunked and embedded by ``embedding_function``
+    (default: :meth:`get_embedding`, the default encoder on ``device``).
     """
 
     def __init__(
@@ -116,9 +130,13 @@ class HyperDB:
             self.select_keys = [self.select_keys]
         self.vectors_normalized = False
 
+        # Staged ingest: per staged document its rows, and (chunk count,
+        # record in split_info?) — split_info is recorded for embedded
+        # documents only, never for precomputed vectors (the reference's rule)
         self.pending_vectors: list[np.ndarray] = []
         self.pending_documents: list = []
         self.pending_source_indices: list[int] = []
+        self._pending_splits: list[tuple[int, bool]] = []
 
         self._metadata_index: dict[int, dict] = {}
         self.metadata_keys = metadata_keys or []
@@ -133,6 +151,8 @@ class HyperDB:
         self._metadata_codes = _filters.MetadataCodes()
         self._key_embed_cache: dict = {}
         self._sentence_mask_cache: dict = {}
+        self._tokenizer_obj = None
+        self._embedder_obj = None
 
         if documents:
             documents = self.validate_and_convert_documents(documents)
@@ -167,7 +187,7 @@ class HyperDB:
                 self._store_metadata(doc, i)
             self._build_ann_index()
         elif documents:
-            _not_ported("text embedding of documents", "item 4")
+            self.add(documents, vectors=None, add_timestamp=self.add_timestamp)
 
     @classmethod
     def from_state(cls, state: dict, device=None) -> "HyperDB":
@@ -206,7 +226,29 @@ class HyperDB:
         d = self._store.dim
         if d is not None:
             return d
-        return None if self.ann_dim is None else int(self.ann_dim)
+        if self.ann_dim is not None:
+            return int(self.ann_dim)
+        return getattr(self._embedder(), "dim", None)
+
+    def _tokenizer(self):
+        if self._tokenizer_obj is None:
+            # an encoder with its own WordPiece vocab chunks with it (the
+            # reference pairs its tokenizer with MiniLM the same way)
+            chunk_tok = getattr(self._embedder(), "chunk_tokenizer", None)
+            self._tokenizer_obj = chunk_tok or _chunker.default_tokenizer()
+        return self._tokenizer_obj
+
+    def _embedder(self):
+        if self._embedder_obj is None:
+            from hyperdb_tpu_torch.models.embedder import default_embedder
+
+            # an existing corpus pins the embedder's output dim; a fresh
+            # corpus gets the default encoder
+            known = self._store.dim
+            if known is None and self.ann_dim is not None:
+                known = int(self.ann_dim)
+            self._embedder_obj = default_embedder(known, device=self.device)
+        return self._embedder_obj
 
     def _on_mutation(self) -> None:
         """Invalidate every derived/cached structure after a mutation."""
@@ -215,14 +257,38 @@ class HyperDB:
         self._sentence_mask_cache.clear()
         self._store.invalidate()
 
+    # ------------------------------------------------------------------
+    # embedding / chunking
+    # ------------------------------------------------------------------
+
+    def text_to_chunks(self, text: str, max_length: int = _chunker.MAX_TOKENS):
+        return _chunker.text_to_chunks(text, self._tokenizer(), max_length)
+
+    def prepare_texts_and_indices(self, documents):
+        return _chunker.prepare_texts_and_indices(documents, self._tokenizer())
+
     def get_embedding(self, documents):
-        _not_ported("text embedding", "item 4")
+        """Default embedding function (reference get_embedding,
+        hyperdb.py:311-337): chunk then encode; returns
+        (embeddings, source_indices, split_info)."""
+        if documents is None:
+            raise ValueError("Documents cannot be None.")
+        try:
+            texts, source_indices, split_info = self.prepare_texts_and_indices(documents)
+            embeddings = np.asarray(
+                self._embedder().encode(texts), dtype=self.fp_precision
+            )
+        except ValueError:
+            raise
+        except Exception as e:  # the reference's error contract
+            raise RuntimeError(f"An error occurred while generating embeddings: {e}") from e
+        return embeddings, source_indices, split_info
 
-    def save(self, *args, **kwargs):
-        _not_ported("persistence", "item 9")
-
-    def load(self, *args, **kwargs):
-        _not_ported("persistence", "item 9")
+    def generate_query_vector(self, query_text: str):
+        query_vector = self.embedding_function([query_text])
+        if query_vector is None or len(query_vector) == 0:
+            raise ValueError("Failed to generate an embedding for the query text.")
+        return query_vector[0]
 
     # ------------------------------------------------------------------
     # validation
@@ -305,19 +371,29 @@ class HyperDB:
             _not_ported("the IVF index", "item 10")
         self.ann_index = FlatIndex(self.ann_metric, int(self.vectors.shape[1]))
 
+    def _update_ann_index(self) -> None:
+        """Refresh the index after a mutation. The flat index is rebuilt;
+        the JAX package's IVF grows incrementally here (item 10)."""
+        self._build_ann_index()
+
+    def set_ann_metric(self, new_metric: str) -> None:
+        """Switch the index metric and rebuild (reference hyperdb.py:225-235)."""
+        if self.ann_metric != new_metric:
+            self.ann_metric = new_metric
+            self.vectors_normalized = False
+        self._update_ann_index()
+
     # ------------------------------------------------------------------
     # ingest
     # ------------------------------------------------------------------
 
     def add(self, documents, vectors=None, add_timestamp: bool = False) -> None:
-        """Add one document or a list with their precomputed vectors
-        (reference hyperdb.py:548-566)."""
+        """Add one document or a list (reference hyperdb.py:548-566); without
+        ``vectors`` they are chunked and embedded."""
         if documents is None or (
             isinstance(documents, (list, tuple, str, dict)) and not documents
         ):
             return
-        if vectors is None:
-            _not_ported("text embedding of documents", "item 4")
         if isinstance(documents, list):
             self.add_documents(
                 [self.filter_document(d) for d in documents], vectors, add_timestamp
@@ -327,66 +403,202 @@ class HyperDB:
                 self.filter_document(documents), vectors, add_timestamp=add_timestamp
             )
             self.commit_pending()
-            self._build_ann_index()
-        self.lru_cache.clear()
+            self._update_ann_index()
+        self.clear_cache()
+
+    def _stage(self, document, rows: np.ndarray, record_split: bool) -> None:
+        """Stage one document with its (c, d) block of rows."""
+        chunk_count = int(rows.shape[0])
+        doc_index = len(self.documents) + len(self.pending_documents)
+        self.pending_documents.append(document)
+        self.pending_vectors.append(rows)
+        self._pending_splits.append((chunk_count, record_split))
+        self.pending_source_indices.extend([doc_index] * chunk_count)
 
     def add_document(
-        self, document, vectors, count: int = 1, add_timestamp: bool = False
+        self, document, vectors=None, count: int = 1, add_timestamp: bool = False
     ) -> None:
-        """Stage a single document with its (c, d) block of rows, one row
-        per chunk (reference hyperdb.py:568-626). :meth:`commit_pending`
-        applies the staged state."""
+        """Stage a single document (reference hyperdb.py:568-626), embedded
+        when ``vectors`` is None (one row per chunk), else with its (c, d)
+        block of rows. :meth:`commit_pending` applies the staged state."""
         if not document:
             return
         if isinstance(document, dict) and add_timestamp:
             document.setdefault("metadata", {})["timestamp"] = float(
                 datetime.datetime.now().timestamp()
             )
+        record_split = vectors is None
+        if record_split:
+            vectors, _, _ = self.embedding_function([document])
         rows = np.asarray(vectors, dtype=self.fp_precision)
         if rows.ndim == 1:
             rows = rows[None, :]
         self.validate_vector_uniformity(rows)
         for _ in range(count):
-            doc_index = len(self.documents) + len(self.pending_documents)
-            self.pending_documents.append(document)
-            self.pending_vectors.append(rows)
-            self.pending_source_indices.extend([doc_index] * int(rows.shape[0]))
+            self._stage(document, rows, record_split)
 
-    def add_documents(self, documents, vectors, add_timestamp: bool = False) -> None:
-        """Transactional batch add (reference hyperdb.py:628-689): stage one
-        row per document, consistency-check, commit or roll back."""
+    def add_documents(self, documents, vectors=None, add_timestamp: bool = False) -> None:
+        """Transactional batch add (reference hyperdb.py:628-689): embed once
+        (when ``vectors`` is None), stage per document, consistency-check,
+        commit or roll back. Bad input prints and rolls back; anything else
+        rolls back and raises."""
         if not documents:
             return
-        if len(documents) != len(vectors):
+        if vectors is not None and len(documents) != len(vectors):
             print("Error: The number of documents must match the number of vectors.")
             return
         saved = (list(self.pending_vectors), list(self.pending_documents),
-                 list(self.pending_source_indices), dict(self._metadata_index))
+                 list(self.pending_source_indices), list(self._pending_splits),
+                 dict(self._metadata_index))
+
+        def roll_back():
+            (self.pending_vectors, self.pending_documents, self.pending_source_indices,
+             self._pending_splits, self._metadata_index) = saved
+
+        committed = False
         try:
+            if isinstance(documents, dict):
+                documents = [documents]
             if add_timestamp:
                 now = float(datetime.datetime.now().timestamp())
                 for doc in documents:
                     if isinstance(doc, dict):
                         doc.setdefault("metadata", {})["timestamp"] = now
-            rows_all = np.asarray(vectors, dtype=self.fp_precision)
+            if vectors is None:
+                embeddings, _, split_info = self.embedding_function(documents)
+                rows_all = np.asarray(embeddings, dtype=self.fp_precision)
+            else:
+                rows_all = np.asarray(vectors, dtype=self.fp_precision)
+                split_info = {i: 1 for i in range(len(documents))}
             if rows_all.ndim == 1:
                 rows_all = rows_all[None, :]
             self.validate_vector_uniformity(rows_all)
+
+            cursor = 0
             for i, document in enumerate(documents):
-                self.pending_source_indices.append(
-                    len(self.documents) + len(self.pending_documents)
+                chunk_count = int(split_info.get(i, 1))
+                self._stage(document, rows_all[cursor : cursor + chunk_count], vectors is None)
+                cursor += chunk_count
+            total_rows = sum(v.shape[0] for v in self.pending_vectors)
+            if total_rows != len(self.pending_source_indices) or cursor != rows_all.shape[0]:
+                print(
+                    "Inconsistency in add_documents detected between the number "
+                    f"of pending vectors and documents. Total vectors calculated: "
+                    f"{total_rows}, Total pending documents: "
+                    f"{len(self.pending_documents)}. Transaction rolled back."
                 )
-                self.pending_documents.append(document)
-                self.pending_vectors.append(rows_all[i : i + 1])
+                roll_back()
+                return
             self.commit_pending()
-            self._build_ann_index()
+            committed = True
+            self._update_ann_index()
         except (ValueError, TypeError) as e:
             print(f"An exception occurred: {e}")
-            (self.pending_vectors, self.pending_documents,
-             self.pending_source_indices, self._metadata_index) = saved
+            if not committed:
+                roll_back()
+        except Exception:
+            if not committed:
+                roll_back()
+            raise
+
+    def add_stream(
+        self,
+        documents,
+        batch_size: int = 1024,
+        add_timestamp: bool = False,
+        prefetch: int = 2,
+        defer_index: bool = False,
+    ) -> int:
+        """Streaming ingest: a producer thread chunks and embeds batch i+1
+        while the caller's thread stages, commits and indexes batch i.
+
+        ``documents`` is any iterable; ``prefetch`` bounds the embedded
+        batches held in flight. Each batch commits as its own transaction,
+        so a failure mid-stream keeps the batches committed before it (the
+        exception is re-raised). ``defer_index=True`` builds the index once
+        at the end. Returns the number of documents added."""
+        import queue as _queue
+        import threading
+
+        done = object()
+        stop = threading.Event()
+        q: _queue.Queue = _queue.Queue(maxsize=max(1, prefetch))
+
+        def put(item) -> bool:
+            # give up when the consumer has stopped reading
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except _queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                batch: list = []
+
+                def flush() -> bool:
+                    if not batch:
+                        return True
+                    if add_timestamp:
+                        now = float(datetime.datetime.now().timestamp())
+                        for doc in batch:
+                            if isinstance(doc, dict):
+                                doc.setdefault("metadata", {})["timestamp"] = now
+                    embeddings, _, split_info = self.embedding_function(batch)
+                    ok = put((list(batch), np.asarray(embeddings), dict(split_info)))
+                    batch.clear()
+                    return ok
+
+                for doc in documents:
+                    if doc is None or (isinstance(doc, (list, tuple, str, dict)) and not doc):
+                        continue
+                    batch.append(self.filter_document(doc))
+                    if len(batch) >= batch_size and not flush():
+                        return
+                if flush():
+                    put(done)
+            except BaseException as e:  # handed to the consumer, which raises it
+                put(e)
+
+        worker = threading.Thread(target=produce, daemon=True)
+        worker.start()
+        added = 0
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                batch_docs, rows_all, split_info = item
+                rows_all = rows_all.astype(self.fp_precision, copy=False)
+                if rows_all.ndim == 1:
+                    rows_all = rows_all[None, :]
+                self.validate_vector_uniformity(rows_all)
+                cursor = 0
+                for i, document in enumerate(batch_docs):
+                    chunk_count = int(split_info.get(i, 1))
+                    self._stage(document, rows_all[cursor : cursor + chunk_count], True)
+                    cursor += chunk_count
+                self.commit_pending()
+                if not defer_index:
+                    self._update_ann_index()
+                added += len(batch_docs)
+        finally:
+            stop.set()
+            worker.join(timeout=5.0)
+            if added:
+                if defer_index:
+                    self._update_ann_index()
+                self.clear_cache()
+        return added
 
     def commit_pending(self) -> None:
-        """Apply staged documents/vectors (reference hyperdb.py:496-545)."""
+        """Apply staged documents/vectors (reference hyperdb.py:496-545).
+        Metadata is computed before any state changes, so a failure leaves
+        nothing half-committed."""
         if not self.pending_vectors:
             return
         rows = np.concatenate(self.pending_vectors, axis=0)
@@ -399,6 +611,9 @@ class HyperDB:
         ]
         self._store.append(rows)
         self.source_indices.extend(self.pending_source_indices)
+        for offset, (chunk_count, record_split) in enumerate(self._pending_splits):
+            if record_split:
+                self.split_info[start + offset] = chunk_count
         self.documents.extend(self.pending_documents)
         for unique_index, metadata in staged_metadata:
             if metadata:
@@ -406,6 +621,7 @@ class HyperDB:
         self.pending_vectors.clear()
         self.pending_documents.clear()
         self.pending_source_indices.clear()
+        self._pending_splits.clear()
         self._on_mutation()
 
     # ------------------------------------------------------------------
@@ -521,6 +737,85 @@ class HyperDB:
                 output.append(doc)
         return output
 
+    def compute_and_save_word_frequencies(self, output_file_path) -> None:
+        """Word histogram over stored documents (reference hyperdb.py:1007-1033)."""
+        word_frequencies: dict[str, int] = collections.defaultdict(int)
+        table = str.maketrans("", "", string.punctuation)
+
+        def count(text: str) -> None:
+            for word in text.translate(table).split():
+                word_frequencies[word.lower()] += 1
+
+        for document in self.documents:
+            if isinstance(document, dict):
+                for value in document.values():
+                    count(str(value))
+            elif isinstance(document, str):
+                count(document)
+
+        ordered = sorted(word_frequencies.items(), key=lambda x: x[1], reverse=True)
+        with open(output_file_path, "w") as f:
+            for word, freq in ordered:
+                f.write(f"{word}: {freq}\n")
+
+    # ------------------------------------------------------------------
+    # list-based filter helpers (the reference's public surface; the
+    # engine itself uses the mask pipeline of query/filters.py)
+    # ------------------------------------------------------------------
+
+    def tokenize(self, text: str):
+        return _filters.tokenize(text)
+
+    def recursive_sentence_filter(self, obj, sentence_filter_tokens) -> bool:
+        return _filters._recursive_sentence_match(obj, sentence_filter_tokens)
+
+    def apply_skip_doc(self, vectors, documents, skip_doc: int):
+        """(reference hyperdb.py:1119-1134)"""
+        mask = _filters.skip_doc_mask(len(documents), skip_doc)
+        kept = np.flatnonzero(mask)
+        vec = np.asarray(vectors)[kept] if vectors is not None else None
+        return vec, [documents[i] for i in kept], kept.tolist()
+
+    def filter_by_sentence(self, vectors, documents, sentence_filters):
+        """(reference hyperdb.py:1160-1176)"""
+        if not isinstance(sentence_filters, (list, tuple)):
+            sentence_filters = [sentence_filters]
+        tokenized = [_filters.tokenize(s) for s in sentence_filters]
+        kept_vecs, kept_docs = [], []
+        for vec, doc in zip(vectors, documents):
+            if all(_filters._recursive_sentence_match(doc, toks) for toks in tokenized):
+                kept_vecs.append(vec)
+                kept_docs.append(doc)
+        return kept_vecs, kept_docs
+
+    def filter_by_key(self, vectors, documents, keys):
+        """(reference hyperdb.py:1061-1110): per document, the mean of its
+        keys' embeddings (a missing key counts as a zero vector)."""
+        if not isinstance(keys, (list, tuple)):
+            keys = [keys]
+        _nested.validate_keys(keys, self.document_keys, "query_keys", "document_keys")
+        if self.select_keys:
+            _nested.validate_keys(keys, self.select_keys, "query_keys", "select_keys")
+        dim = self.dim or (np.asarray(vectors).shape[1] if len(vectors) else 0)
+        kept_vecs, kept_docs = [], []
+        for doc in documents:
+            if not isinstance(doc, dict):
+                continue
+            per_key = []
+            for key in keys:
+                sub = _nested.get_nested_value(doc, [key])
+                if sub is not None:
+                    emb = np.asarray(self.embedding_function([str(sub)])[0], dtype=np.float32)
+                    vec = emb.mean(axis=0) if emb.ndim == 2 else emb.reshape(-1)
+                else:
+                    vec = np.zeros(dim, dtype=np.float32)
+                per_key.append(vec)
+            if not per_key:
+                continue
+            kept_vecs.append(np.mean(per_key, axis=0))
+            kept_docs.append(doc)
+        return kept_vecs, kept_docs
+
     # ------------------------------------------------------------------
     # query
     # ------------------------------------------------------------------
@@ -622,3 +917,205 @@ class HyperDB:
         else:
             cache_size_str = f"{int(size_bytes)} bytes"
         return {"cache_info": cache_info, "cache_memory_size": cache_size_str}
+
+    def warmup(self, top_ks=(5, 10), batch_sizes=(1,),
+               metric="cosine_similarity", max_batch=None, dtypes=None,
+               text_max_batch=None, text_seq_tokens=(12, 48)):
+        """Run each query shape once after load or ingest, so that the
+        first user query pays no one-time cost (device planes, lazy
+        uploads, kernel builds, the encoder's first forwards).
+
+        ``max_batch`` warms every power-of-two batch up to it, in every wire
+        dtype (f16 as well for low-precision corpora) unless ``dtypes`` is
+        given. ``metric`` is one name or a tuple. ``text_max_batch`` also
+        warms the text path (encoder forward + scan) at the power-of-two
+        batches up to it, for texts of ``text_seq_tokens`` words."""
+        if self.vectors is None or len(self.vectors) == 0 or not self.documents:
+            return
+        metrics = (metric,) if isinstance(metric, str) else tuple(metric)
+        if max_batch is not None:
+            batch_sizes = tuple(1 << i for i in range(int(max_batch).bit_length()))
+        if dtypes is None:
+            dtypes = ["float32"]
+            if self._store.low_precision_device:
+                dtypes.append("float16")
+        rng = np.random.default_rng(0)
+        for b in batch_sizes:
+            base = rng.standard_normal((b, self.dim)).astype(np.float32)
+            for dt in dtypes:
+                queries = base.astype(dt)
+                for k in top_ks:
+                    for m in metrics:
+                        if b == 1:
+                            _engine.execute_query(
+                                self, np.asarray(queries[0], dtype=np.float32),
+                                top_k=k, metric=m,
+                            )
+                        else:
+                            _engine.execute_query_batch(self, queries, top_k=k, metric=m)
+        if text_max_batch:
+            self._warmup_text(text_max_batch, text_seq_tokens, top_ks, metrics[0])
+
+    def _warmup_text(self, text_max_batch, text_seq_tokens, top_ks, metric):
+        """Warm the text path: encoder forwards (the device-resident block
+        where the embedder has one, the host path otherwise) and the scan."""
+        sizes = tuple(1 << i for i in range(int(text_max_batch).bit_length()))
+        k = max(top_ks)
+        probe = _engine.generate_query_vectors_batch(self, ["warmup probe"])
+        if self.dim is not None and probe.shape[1] != self.dim:
+            # text queries can never run against this corpus
+            print(
+                f"INFO: skipping text warmup — embedder dimension "
+                f"{probe.shape[1]} does not match corpus dimension {self.dim}"
+            )
+            return
+        for n_tok in text_seq_tokens:
+            words = " ".join(f"w{i}" for i in range(max(1, int(n_tok))))
+            for b in sizes:
+                texts = [f"warm {i} {words}" for i in range(b)]
+                block = _engine.generate_query_vectors_batch_device(self, texts)
+                if block is None:
+                    block = _engine.generate_query_vectors_batch(self, texts)
+                _engine.execute_query_batch_arrays(
+                    self, block, top_k=k, metric=metric, n_valid=len(texts)
+                )
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+
+    def save(
+        self,
+        storage_file,
+        format: str = "pickle",
+        save_ann_index: bool = True,
+        rows_per_shard: int | None = None,
+    ):
+        """(reference hyperdb.py:769-794) Formats: pickle[.gz] / json /
+        sqlite (reference-compatible) or ``"checkpoint"``, a self-describing
+        binary directory (``persist/checkpoint.py``; ``rows_per_shard``
+        splits its vectors into shard files). Every file is readable by the
+        JAX package, and the reverse."""
+        if format == "checkpoint":
+            from hyperdb_tpu_torch.persist.checkpoint import save_checkpoint
+
+            save_checkpoint(
+                self, str(storage_file), save_ann_index, rows_per_shard=rows_per_shard
+            )
+            return
+        if self.vectors is None or len(self.vectors) == 0 or not self.documents:
+            print("Nothing to save. Exit.")
+            return
+        data = {
+            "vectors": [vector.tolist() for vector in self.vectors]
+            if format != "pickle"
+            else self.vectors,
+            "documents": self.documents,
+            "source_indices": self.source_indices,
+            "split_info": self.split_info,
+            "metadata_index": self._metadata_index,
+            "vectors_normalized": self.vectors_normalized,
+        }
+        _persist.save_payload(str(storage_file), data, format=format)
+        if save_ann_index and self.ann_index is not None:
+            self._save_ann_index(storage_file)
+
+    def _save_ann_index(self, storage_file) -> None:
+        """The ``<file>.ann`` sidecar: the index state as an npz under the
+        reference's exact sidecar name."""
+        ann_index_file = str(storage_file) + ".ann"
+        np.savez_compressed(ann_index_file, **_flatten_state(self.ann_index.state()))
+        # np.savez appends .npz
+        os.replace(ann_index_file + ".npz", ann_index_file)
+
+    def load(
+        self,
+        storage_file,
+        format: str = "pickle",
+        load_ann_index: bool = True,
+        preload_ann_into_memory: bool = False,
+    ):
+        """(reference hyperdb.py:901-925) A pickle, json or sqlite file is
+        cast to this DB's ``fp_precision``; a checkpoint restores its own."""
+        if format == "checkpoint":
+            from hyperdb_tpu_torch.persist.checkpoint import load_checkpoint
+
+            load_checkpoint(self, str(storage_file), load_ann_index)
+            if preload_ann_into_memory:
+                self._preload_into_memory()
+            return
+        data = _persist.load_payload(str(storage_file), format=format)
+        self._store.set(np.array(data["vectors"], dtype=self.fp_precision))
+        if self.vectors is not None and len(self.vectors) > 0:
+            self.ann_dim = int(self.vectors.shape[1])
+        self.documents = data["documents"]
+        self.source_indices = list(data.get("source_indices", []))
+        self._metadata_index = data.get("metadata_index", {})
+        self.split_info = data.get("split_info", {})
+        self.vectors_normalized = data.get("vectors_normalized", False)
+        self._on_mutation()
+        self.clear_cache()
+        if load_ann_index and self.ann_dim is not None:
+            self._load_ann_index(storage_file, preload_ann_into_memory)
+        else:
+            # a previous corpus's index must not survive into the new state
+            self.ann_index = None
+
+    def _load_ann_index(self, storage_file, preload_ann_into_memory: bool = True):
+        """Restore the ``.ann`` sidecar, or rebuild the index when there is
+        none. A sidecar that is not an npz (the reference's Annoy forest)
+        warns and rebuilds; an IVF or projscan state raises
+        ``NotImplementedError`` (item 10)."""
+        ann_index_file = str(storage_file) + ".ann"
+        if not os.path.exists(ann_index_file):
+            self._build_ann_index()
+        else:
+            if preload_ann_into_memory:
+                size_gb = os.path.getsize(ann_index_file) / (1024**3)
+                if size_gb > 2:
+                    print(
+                        f"Warning: The ANN index file is {size_gb:.2f}GB "
+                        "and may consume a lot of memory. Make sure your "
+                        "machine has enough available memory or set "
+                        "preload_ann_into_memory to False."
+                    )
+            try:
+                with np.load(ann_index_file, allow_pickle=False) as f:
+                    state = _unflatten_state(dict(f.items()))
+            except (OSError, ValueError, zipfile.BadZipFile) as e:
+                print(
+                    "Warning: could not parse ANN index sidecar "
+                    f"'{ann_index_file}' ({e}); rebuilding the index "
+                    "from the loaded vectors instead."
+                )
+                self._build_ann_index()
+            else:
+                from hyperdb_tpu_torch.index import index_from_state
+
+                self.ann_index = index_from_state(state)
+        if preload_ann_into_memory:
+            self._preload_into_memory()
+
+    def _preload_into_memory(self) -> None:
+        """Build every device plane serving can touch now (on the card),
+        instead of at the first query: the float planes (cosine and raw)
+        and, for the int8 representations, the int8 planes."""
+        if self._store.num_rows == 0 or not self.source_indices:
+            return
+        dv = self._store.device_view(self.source_indices)
+        if self._store.precision != "int8-pure":
+            for key in ("rows_norm", "rows"):
+                dv[key]  # the lazy view uploads a plane on first access
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def _flatten_state(state: dict) -> dict:
+    return {
+        key: value if isinstance(value, np.ndarray) else np.asarray(value)
+        for key, value in state.items()
+    }
+
+
+def _unflatten_state(arrays: dict) -> dict:
+    return {key: value.item() if value.ndim == 0 else value for key, value in arrays.items()}

@@ -2,11 +2,12 @@
 
 Counterpart of ``hyperdb_tpu/query/engine.py``: filters become host masks,
 then one ranking call runs on the store's device (score + NaN scrub + mask
-+ recency + top-k). Served so far: unchunked corpora (one row per document)
++ recency + top-k). Served: unchunked corpora (one row per document)
 on float, int8 and int8-pure planes, with the grouped, kernel and streamed
 routes of all seven metrics; chunked corpora (several rows per document,
-ranked at document level); the key-filter override branch; and the
-tiny-corpus host path. The IVF and projscan indexes are not ported: a
+ranked at document level); the key-filter override branch; the tiny-corpus
+host path; and text queries, embedded on the host path or kept on the
+device as a query block. The IVF and projscan indexes are not ported: a
 corpus that asks for one raises ``NotImplementedError`` in ``core/db.py``.
 
 Preserved reference semantics (SURVEY.md §2.4): Q10/Q11 metric naming and
@@ -105,6 +106,69 @@ def generate_and_validate_query_vector(db, query_input) -> np.ndarray:
     except Exception as e:
         print(f"An exception occurred due to invalid input: {e}")
         raise
+
+
+def generate_query_vectors_batch(db, texts) -> np.ndarray:
+    """Embed a block of query texts in one encoder pass -> (B, d) f32.
+
+    The batched twin of the string branch of
+    :func:`generate_and_validate_query_vector`: long queries (more than 510
+    tokens) are averaged over their chunks as the single-query path does.
+    """
+    if not isinstance(texts, (list, tuple)) or not all(isinstance(t, str) for t in texts):
+        raise ValueError("texts must be a list of strings")
+    if not texts:
+        return np.zeros((0, db.dim or 0), dtype=np.float32)
+    emb, src, _ = db.embedding_function(list(texts))
+    emb = np.asarray(emb, dtype=np.float32)
+    src = np.asarray(src, dtype=np.int64)
+    if emb.shape[0] == len(texts) and np.array_equal(src, np.arange(len(texts))):
+        return emb
+    out = np.zeros((len(texts), emb.shape[1]), dtype=np.float32)
+    np.add.at(out, src, emb)
+    counts = np.bincount(src, minlength=len(texts)).astype(np.float32)
+    return out / np.maximum(counts, 1.0)[:, None]
+
+
+def _default_embed_path(db):
+    """``(embedder, prepare_fn)`` when ``db`` embeds through the default
+    chunk-then-encode pipeline (its own or one built by
+    ``make_embedding_function``), ``(None, None)`` for other embedding
+    functions."""
+    fn = db.embedding_function
+    if fn == getattr(db, "get_embedding", None):
+        return db._embedder(), db.prepare_texts_and_indices
+    emb = getattr(fn, "embedder", None)
+    tok = getattr(fn, "tokenizer", None)
+    if emb is not None and tok is not None:
+        from hyperdb_tpu_torch.core import chunker as _chunker
+
+        return emb, lambda docs: _chunker.prepare_texts_and_indices(docs, tok)
+    return None, None
+
+
+def generate_query_vectors_batch_device(db, texts):
+    """Twin of :func:`generate_query_vectors_batch` whose block stays on
+    the encoder's device: a ``(b_pad, d)`` float32 tensor, ``b_pad`` the
+    next power of two >= ``len(texts)`` (pad rows are finite; pass
+    ``n_valid=len(texts)`` to the batch query). None when the block cannot
+    stay there and the caller must take the host path: embedding functions
+    outside the default pipeline, embedders without ``encode_device`` (the
+    hash and hybrid encoders compute on the host), or texts that chunk
+    (the chunk mean is host arithmetic)."""
+    if not isinstance(texts, (list, tuple)) or not all(isinstance(t, str) for t in texts):
+        raise ValueError("texts must be a list of strings")
+    if not texts:
+        return None
+    embedder, prepare = _default_embed_path(db)
+    if embedder is None or not hasattr(embedder, "encode_device"):
+        return None
+    chunk_texts, src, _ = prepare(list(texts))
+    if len(chunk_texts) != len(texts) or not np.array_equal(
+        np.asarray(src), np.arange(len(texts))
+    ):
+        return None
+    return embedder.encode_device(chunk_texts)
 
 
 def handle_timestamps(db, recency_bias, timestamp_key, doc_indices) -> np.ndarray | None:
@@ -302,7 +366,9 @@ def execute_query_batch_arrays(
     Returns ``(doc_ids, scores)`` as ``(B, k)`` int64 / float32 NumPy arrays
     with ``k = min(top_k, surviving docs)`` (``k == 0`` when filters
     eliminate everything). float16 query blocks stay float16 up to the
-    ranking call. ``n_valid`` limits how many leading rows are real queries.
+    ranking call. ``query_inputs`` may be a 2-D tensor on the database's
+    device (a tensor elsewhere raises). ``n_valid`` limits how many leading
+    rows are real queries.
     """
     num_docs = len(db.documents)
     start_time = _time.perf_counter()
@@ -311,7 +377,18 @@ def execute_query_batch_arrays(
     if metric not in METRICS:
         raise ValueError(f"Invalid metric '{metric}'.")
 
-    if isinstance(query_inputs, np.ndarray) and query_inputs.ndim == 2:
+    device_block = isinstance(query_inputs, torch.Tensor) and query_inputs.ndim == 2
+    if device_block:
+        # a block already on the store's device (the text path's
+        # generate_query_vectors_batch_device): it rides into the scan as it
+        # is, never fetched or padded here
+        if query_inputs.device != db._store.device:
+            raise ValueError(
+                f"query block is on {query_inputs.device}, the database on "
+                f"{db._store.device}"
+            )
+        q_block = query_inputs
+    elif isinstance(query_inputs, np.ndarray) and query_inputs.ndim == 2:
         q_block = (
             query_inputs
             if query_inputs.dtype == np.float16
@@ -332,7 +409,11 @@ def execute_query_batch_arrays(
     # both packages scan the same batch shapes. Host-path-sized corpora skip
     # it (padding could push them onto the device path).
     b_real = q_block.shape[0]
-    if CONFIG.batch_bucket and db._store.num_rows * b_real > CONFIG.host_path_max_cells:
+    if (
+        not device_block  # device blocks arrive padded to a power of two
+        and CONFIG.batch_bucket
+        and db._store.num_rows * b_real > CONFIG.host_path_max_cells
+    ):
         b_pad = _pad_pow2(b_real)
         if b_pad != b_real:
             q_block = np.concatenate(
@@ -374,7 +455,12 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
     # Tiny-corpus host fast path (ops/host_ranking): below this cell count a
     # device launch and readback cost more than the scan.
     cells = store.num_rows * max(1, int(q_block.shape[0]))
+    device_block = isinstance(q_block, torch.Tensor)
     if 0 < cells <= CONFIG.host_path_max_cells:
+        if device_block:
+            # below this cell count a device launch costs more than the
+            # block's readback and the host scan together
+            q_block = q_block.cpu().numpy()
         if override is not None:
             vals, idx = rank_block_host(
                 q_block, override, top_k, metric, doc_mask=mask, recency=recency
@@ -395,10 +481,13 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
             )
         return idx, vals
 
-    q_host = np.ascontiguousarray(q_block)
-    if q_host.dtype != np.float16:
-        q_host = q_host.astype(np.float32, copy=False)
-    q = torch.from_numpy(q_host).to(device)
+    if device_block:
+        q = q_block if q_block.dtype in (torch.float16, torch.float32) else q_block.float()
+    else:
+        q_host = np.ascontiguousarray(q_block)
+        if q_host.dtype != np.float16:
+            q_host = q_host.astype(np.float32, copy=False)
+        q = torch.from_numpy(q_host).to(device)
     k_pad = min(_pad_pow2(top_k), bucket_size(num_docs))
 
     if override is not None:
@@ -439,13 +528,17 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
         prenorm = metric == "cosine_similarity"
         precision = store.precision
         k_eff = min(k_pad, n_pad)
-        batch = int(q_host.shape[0])
+        batch = int(q.shape[0])
         if precision in ("int8", "int8-pure") and metric in (
             "dot_product",
             "cosine_similarity",
         ):
             qq = q
-            if prenorm:
+            if prenorm and device_block:
+                q32 = q.float()
+                qn = torch.sqrt(torch.sum(q32 * q32, dim=1, keepdim=True))
+                qq = q32 / torch.where(qn == 0, torch.ones_like(qn), qn)
+            elif prenorm:
                 # on the host in NumPy, as the JAX engine does: f32
                 # accumulation, result back at the wire dtype, so both
                 # packages quantize the same query bits
@@ -497,9 +590,16 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
             # Constant rows/queries become NaN operands whose scores every
             # route scrubs to -inf, as the pearson_scores fallback does.
             plane = store.pearson_view(db.source_indices)["rows_pearson"]
-            qq = pearson_center_normalize(np.array(q_host, dtype=np.float32))
+            if device_block:
+                # no zero guard, as on the host: a constant query is NaN
+                qc = q.float() - q.float().mean(dim=1, keepdim=True)
+                qq = qc / torch.sqrt(torch.sum(qc * qc, dim=1, keepdim=True))
+            else:
+                qq = torch.from_numpy(
+                    pearson_center_normalize(np.array(q_host, dtype=np.float32))
+                ).to(device)
             vals, idx = rank_top_k(
-                torch.from_numpy(qq).to(device).to(plane.dtype),
+                qq.to(plane.dtype),
                 plane,
                 k=k_eff,
                 metric="dot_product",

@@ -587,3 +587,109 @@ def test_manhattan_db_on_card_matches_cpu(dev, monkeypatch, l1t):
     same({"recency_bias": 0.05, "timestamp_key": "ts"}, q)
     same({}, q[:16])
     assert sum(L.LAUNCHES.values()) == sum(before.values()) + 2
+
+
+# ---------------------------------------------------------------- the text path
+
+# the local-384 encoder, card against CPU (unit rows): largest element
+# difference and smallest row cosine, as chip_smoke.py holds them (6.7e-4
+# and 0.99999 measured on an H100 there)
+ENC_MAX_ABS, ENC_MIN_COS = 5e-3, 0.9999
+
+
+@pytest.fixture(scope="module")
+def encoders():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from hyperdb_tpu_torch.models.minilm import MiniLMEmbedder
+
+    return (MiniLMEmbedder.from_local_assets(device="cuda"),
+            MiniLMEmbedder.from_local_assets(device="cpu"))
+
+
+def _texts(n, seed, lo=4, hi=60):
+    rng = np.random.default_rng(seed)
+    words = ("pokemon sleeps hours fire water grass electric psychic ghost rock dragon "
+             "flies swims attacks quickly slowly large small red blue ancient forest cave "
+             "mountain sea river city night day").split()
+    return [" ".join(rng.choice(words, size=rng.integers(lo, hi))) for _ in range(n)]
+
+
+def test_encoder_card_matches_cpu(encoders):
+    card, cpu = encoders
+    texts = _texts(96, 0) + ["", "x"]
+    got, want = card.encode(texts), cpu.encode(texts)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= ENC_MAX_ABS
+    assert (got * want).sum(axis=1).min() >= ENC_MIN_COS
+    block = card.encode_device(texts[:5])
+    assert block.is_cuda and block.shape == (8, 384)
+    np.testing.assert_array_equal(block[:5].cpu().numpy(), card.encode(texts[:5]))
+
+
+@pytest.fixture(scope="module")
+def text_db(encoders):
+    """A float16 text DB embedded on the card, large enough (with the
+    grouped threshold lowered per test) for the gmax route at b = 512."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.models.embedder import make_embedding_function
+
+    card, _ = encoders
+    docs = [{"name": f"d{i}", "text": t} for i, t in enumerate(_texts(4096, 1, 8, 40))]
+    return HyperDB(docs, embedding_function=make_embedding_function(card, card.chunk_tokenizer),
+                   fp_precision="float16", device="cuda")
+
+
+def test_text_block_matches_host_path(text_db, monkeypatch):
+    """``encode_device`` -> ``query_batch_arrays`` gives the host path's
+    embeddings, ids and scores, through ``gmax_f_sub`` at b = 512."""
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.query import engine as E
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    texts = _texts(500, 2, 3, 16)
+    before = G.LAUNCHES["gmax_f_sub"]
+    block = E.generate_query_vectors_batch_device(text_db, texts)
+    assert block.is_cuda and block.shape == (512, 384)
+    ids, vals = text_db.query_batch_arrays(block, top_k=10, n_valid=500)
+    assert G.LAUNCHES["gmax_f_sub"] == before + 1
+    host = E.generate_query_vectors_batch(text_db, texts)
+    np.testing.assert_array_equal(host, block[:500].cpu().numpy())
+    hids, hvals = text_db.query_batch_arrays(host, top_k=10)
+    assert ids.shape == (500, 10)
+    np.testing.assert_array_equal(ids, hids)
+    np.testing.assert_array_equal(vals, hvals)
+
+
+def test_query_block_on_another_device_raises(text_db):
+    from hyperdb_tpu_torch import HyperDB
+
+    with pytest.raises(ValueError, match="query block is on cpu"):
+        text_db.query_batch_arrays(torch.zeros((8, 384)), top_k=5)
+    cpu_db = HyperDB([{"a": "b"}], np.ones((1, 384), np.float32), device="cpu")
+    with pytest.raises(ValueError, match="query block is on cuda"):
+        cpu_db.query_batch_arrays(torch.zeros((8, 384), device="cuda"), top_k=1)
+
+
+@pytest.mark.parametrize("fmt", ["checkpoint", "pickle.gz"])
+def test_save_load_on_card_bit_equal(text_db, tmp_path, monkeypatch, fmt):
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.query import engine as E
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    block = E.generate_query_vectors_batch_device(text_db, _texts(512, 3, 3, 16))
+    ids, vals = text_db.query_batch_arrays(block, top_k=10, n_valid=512)
+    path = str(tmp_path / ("db" if fmt == "checkpoint" else "db.pickle.gz"))
+    if fmt == "checkpoint":
+        text_db.save(path, format="checkpoint")
+        fresh = HyperDB(device="cuda")
+        fresh.load(path, format="checkpoint", preload_ann_into_memory=True)
+    else:
+        text_db.save(path)
+        fresh = HyperDB(fp_precision="float16", device="cuda")
+        fresh.load(path)
+    got_ids, got_vals = fresh.query_batch_arrays(block, top_k=10, n_valid=512)
+    np.testing.assert_array_equal(got_ids, ids)
+    np.testing.assert_array_equal(got_vals, vals)
+    assert fresh.documents == text_db.documents and fresh.split_info == text_db.split_info

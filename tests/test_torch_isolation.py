@@ -6,9 +6,14 @@
 - The kernel wrappers take their plain versions for CPU tensors only: any
   other tensor goes to the kernel, and a kernel library that cannot be
   built or loaded raises, with no fallback.
+- The in-repo encoder's assets are found by path, from any working
+  directory, with no module of the JAX package loaded.
 """
 
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +51,20 @@ def test_no_jax_imports(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_local_assets_found_without_the_jax_package(tmp_path):
+    script = (
+        "import sys\n"
+        "from hyperdb_tpu_torch.models.minilm import MiniLMEmbedder\n"
+        "emb = MiniLMEmbedder.from_local_assets(device='cpu')\n"
+        "assert emb is not None and emb.dim == 384 and emb.config.layers == 4\n"
+        "assert emb.encode(['a short text']).shape == (1, 384)\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "assert not loaded, loaded\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env, check=True, timeout=120)
 
 
 def test_package_import_disables_tf32():
