@@ -40,7 +40,10 @@ Phases, one or a few lines each on standard output:
    metrics must launch nothing (the plain grouped form); pearson is a dot
    scan, whose kernel takes recency. ``gmax_jaccard`` is held EQUAL to its
    plain version on the store's 0/1 plane (masked group, masked rows, empty
-   rows, an empty query) and timed like the float kernels;
+   rows, an empty query) and timed like the float kernels. One more
+   euclidean b = 512 batch plants a copy of row 4 as query 0 and prints the
+   grouped route's score of row 4 beside its own formula in f64 and the
+   f64 difference form;
 7. path A, int8 planes: ``device_precision="int8-pure"`` at b = 1024 and
    b = 4096 (``gmax_int8`` launched once per batch; ids tie-aware equal to
    a plain reference over the same int8 planes) and at b = 64 (the plain
@@ -49,7 +52,7 @@ Phases, one or a few lines each on standard output:
    reference at least 0.99). ``gmax_int8`` is held EQUAL to its plain
    version at b = 1024 on the store's plane (masked group, masked rows,
    recency, zero-scale rows) and timed beside ``torch._int_mm`` + rescale +
-   ``amax``.
+   ``amax``. The projscan build on this isotropic plane must decline;
 8. the manhattan kernels (``gmax_l1``, ``gmax_l1t``) against their plain
    versions on the store's raw 2^20 x 384 bf16 plane at b = 64 and b = 512,
    with masked rows, a masked group, a NaN corpus element and a NaN query.
@@ -69,9 +72,11 @@ Phases, one or a few lines each on standard output:
    route's on the same queries (``pallas_l1_min_batch`` = 0);
 10. path D, chunked: the same rows as 250000 documents of 4 rows each
    (``HyperDB.from_state``; padded to 262144 documents over the 2^20-row
-   plane), cosine and manhattan at b = 64, with and
+   plane), cosine, manhattan and euclidean at b = 64, with and
    without a metadata filter; document ids tie-aware equal to a reference
-   that scores every row and takes each document's best;
+   that scores every row and takes each document's best; then the plain
+   euclidean routes' float64 expansion timed beside the f32 one
+   (``euclidean_cost``);
 11. path E, text and persistence: the in-repo ``local-384`` encoder
    (``MiniLMEmbedder.from_local_assets``, full width) on the card against
    the same encoder on the CPU over 1024 seeded texts (largest element
@@ -88,7 +93,24 @@ Phases, one or a few lines each on standard output:
    the DB's plane and the card's own query embeddings, each timed with its
    breakdown; checkpoint and ``.pickle.gz`` round trips into fresh DBs on the
    card, answers bit-identical; the default (hybrid, 4480-d) embedder over
-   16384 documents and a b = 512 text batch on the plain route.
+   16384 documents and a b = 512 text batch on the plain route;
+12. path F, the two indexes (run after path A): a seeded 1M x 384 float16
+   corpus with a decaying spectrum (``make_spectral_corpus``; its top 128
+   directions must keep at least 0.6 of the variance). F1: a float16 DB
+   with IVF (nlist 2000) through ``query`` (b = 1: the pre-filter and the
+   gathered scan) and ``query_batch_arrays`` at b = 64 and 512 (the shared
+   probe frontier), each answer held tie-aware to an exact f32 scan over
+   the rows the same index probed, recall@10 against the full exact scan
+   held to ``IVF_RECALL_FLOOR``, each timed beside the exact scan of the
+   same DB; an add of 1 % more rows must join the clusters without
+   re-clustering. F2: an int8-pure DB with projscan (d' = 128) at b = 1024
+   and 4096: ``gmax_int8`` launched once per batch on the ``wgmma``
+   variant, ids and scores identical to the same route with the plain
+   stage A, recall@10 against the int8-pure exact scan, a stage breakdown,
+   the exact scan beside it; ``gmax_int8`` held EQUAL to its plain version
+   at (1024, 2^20, 128) on the index's own plane and timed beside its bound
+   and ``torch._int_mm``. F3: a checkpoint round trip of each DB into a
+   fresh DB on the card, index state equal and answers bit-identical.
 
 Then a JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
@@ -140,6 +162,13 @@ ROWS_PER_DOC = 4  # path D
 TEXT_DOCS = 1 << 18  # path E: documents of the text DB (no document chunks)
 ENC_TEXTS = 1024  # path E: texts of the card-against-CPU encoder check
 DEFAULT_EMB_DOCS = 16384  # path E: documents embedded by the default (hybrid) embedder
+F_CENTRES = 4096  # path F: cluster centres of the decaying-spectrum corpus
+F_NOISE = 0.08  # path F: per-direction noise of a row around its centre
+# path F: floor of the IVF batches' recall@10 against the full exact scan. A
+# CPU rehearsal of path F at 65536 and 262144 rows (nlist 512 and 1024, the
+# same budget rule) measured 0.9957-1.0; 0.9 leaves room for the finer lists
+# of 1M rows while still failing an index that probes the wrong clusters.
+IVF_RECALL_FLOOR = 0.9
 # card against CPU, local-384 encoder, unit rows: largest element difference
 # and smallest row cosine (6.7e-4 and 0.99999 measured on an H100 over this
 # script's 1024 texts, PERF.md)
@@ -503,8 +532,10 @@ class DocReference:
     :func:`check_top_k`.
 
     ``metric`` is "manhattan" (``1/(1 + sum|v - q|)`` against the f32
-    queries) or "cosine" (the dot with the query normalized in f32 and
-    rounded to the plane's dtype, as the route multiplies it)."""
+    queries), "euclidean" (``1/(1 + sqrt(sum((v - q)^2)))``, the difference
+    form, against the f32 queries) or "cosine" (the dot with the query
+    normalized in f32 and rounded to the plane's dtype, as the route
+    multiplies it)."""
 
     def __init__(self, metric, q, rows, n_docs, k, per_doc=1, doc_mask=None, rec=None):
         self.metric, self.rows, self.n, self.per_doc, self.rec = metric, rows, n_docs, per_doc, rec
@@ -539,6 +570,8 @@ class DocReference:
         """Scores of broadcastable (.., d) queries and rows -> (..)."""
         if self.metric == "cosine":
             return (r * q).sum(-1)
+        if self.metric == "euclidean":
+            return 1.0 / (1.0 + torch.sqrt(((r - q) ** 2).sum(-1)))
         return 1.0 / (1.0 + (r - q).abs().sum(-1))
 
     def exact(self, ids: torch.Tensor, queries=None) -> torch.Tensor:
@@ -969,6 +1002,30 @@ def path_metrics(db, corpus, kernels, seed: int, card: str) -> None:
         )
         del ref
         torch.cuda.empty_cache()
+    planted_euclidean(db, corpus, seed, card)
+
+
+def planted_euclidean(db, corpus, seed: int, card: str) -> None:
+    """Euclidean at b = 512 with a planted copy of row 4 as query 0: the
+    grouped route's score of row 4 beside two f64 scores. "formula": the
+    route's own expansion |v|^2 - 2 q.v + |q|^2 on its operands (the stored
+    bf16 row, the query rounded to bf16 for the product, the f32 query for
+    |q|^2), so the gap to it is f32 cancellation alone; "difference": the
+    reference's sqrt(sum((q - v)^2)) of the f32 query and the stored row,
+    so the gap to it adds the plane's rounding of the row."""
+    q = make_queries(seed + 39, 512, corpus)
+    ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric="euclidean_metric")
+    if list(ids[0, :2]) != [4, 17]:
+        raise AssertionError(f"euclidean planted: rows 4/17 not first in lower-id order: {ids[0, :3]}")
+    row = db._store.device_view(db.source_indices)["rows"][4]
+    v, q0 = row.double(), torch.from_numpy(q[0]).cuda().double()
+    d2 = float((v * v).sum() - 2.0 * (q0.to(row.dtype).double() * v).sum() + (q0 * q0).sum())
+    formula = 1.0 / (1.0 + max(d2, 0.0) ** 0.5)
+    difference = float(1.0 / (1.0 + torch.linalg.norm(q0 - v)))
+    score = float(vals[0, 0])
+    log(f"path B euclidean b=512 with row 4 planted: ids {ids[0, :3].tolist()}, route score of "
+        f"row 4 {score:.8f}; f64 formula {formula:.8f} (gap {formula - score:.3g}), f64 "
+        f"difference form {difference:.8f} (gap {difference - score:.3g}) [{card}]")
 
 
 def path_int8(docs, corpus, kernels, plane_bf16, seed: int, card: str) -> None:
@@ -1023,6 +1080,7 @@ def path_int8(docs, corpus, kernels, plane_bf16, seed: int, card: str) -> None:
         log(f"int8-pure + euclidean raises: {str(e)[:60]}...")
     else:
         raise AssertionError("int8-pure + euclidean_metric did not raise")
+    projscan_decline_check(dv)
     del db, dv
     torch.cuda.empty_cache()
 
@@ -1061,6 +1119,407 @@ def path_int8(docs, corpus, kernels, plane_bf16, seed: int, card: str) -> None:
     wall = run_batch(db, q1k, "path A int8", card)
     stage_breakdown_int8(db, q1k, wall, card)
     del db, dv, ref
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- path F: indexes
+
+
+def make_spectral_corpus(seed: int, n: int) -> np.ndarray:
+    """Path F's corpus: ``n`` x ``DIM`` float16 rows shaped like real
+    embeddings, with a decaying spectrum. ``F_CENTRES`` cluster centres
+    with per-direction scales ``(j+1)^-0.5`` under a seeded rotation, plus
+    isotropic per-row noise of ``F_NOISE`` per direction; rows 4 and 17 are
+    one duplicated row (the lower id must win the tie)."""
+    rng = np.random.default_rng(seed + 90)
+    rot, _ = np.linalg.qr(rng.standard_normal((DIM, DIM)))
+    scales = (np.arange(DIM) + 1.0) ** -0.5
+    centres = ((rng.standard_normal((F_CENTRES, DIM)) * scales) @ rot.T).astype(np.float32)
+    assign = rng.integers(0, F_CENTRES, size=n)
+    v = np.empty((n, DIM), dtype=np.float16)
+    step = 1 << 18
+    for a in range(0, n, step):
+        m = min(step, n - a)
+        noise = rng.standard_normal((m, DIM), dtype=np.float32) * np.float32(F_NOISE)
+        v[a : a + m] = centres[assign[a : a + m]] + noise
+    v[17] = v[4]
+    return v
+
+
+def index_queries(seed: int, b: int, corpus: np.ndarray) -> np.ndarray:
+    """Queries near corpus rows (a row plus noise of the rows' own noise
+    scale), as a retrieval front end sends; query 0 is row 4 itself."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, N_DOCS, size=b)
+    q = corpus[rows].astype(np.float32)
+    q += rng.standard_normal(q.shape, dtype=np.float32) * np.float32(F_NOISE)
+    q[0] = corpus[4].astype(np.float32)
+    return q
+
+
+def recall_at_k(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.mean([len(set(a) & set(b)) / want.shape[1]
+                          for a, b in zip(got.tolist(), want.tolist())]))
+
+
+def check_over_candidates(name, plane, q, cands, got_ids, got_vals):
+    """Exactness of an IVF answer: for each query, the ids and scores equal
+    (tie-aware, ``ATOL``) an exact f32 scan with a stable sort over exactly
+    the rows ``cands[i]`` that the same index object probed."""
+    worst, swaps = 0.0, 0
+    for i, cand in enumerate(cands):
+        cand = np.asarray(cand, dtype=np.int64)
+        ref = cosine_reference(plane[torch.from_numpy(cand).cuda()], len(cand), q[i : i + 1], TOP_K)
+        order = np.argsort(cand, kind="stable")
+        at = np.searchsorted(cand[order], got_ids[i])
+        at = np.minimum(at, len(cand) - 1)
+        if not np.array_equal(cand[order][at], got_ids[i]):
+            raise AssertionError(f"{name} query {i}: an id outside the probed candidates")
+        s, e = check_top_k(f"{name} query {i}", order[at][None], got_vals[i : i + 1], ref, ATOL)
+        swaps += s
+        worst = max(worst, e)
+    return swaps, worst
+
+
+def projscan_decline_check(dv) -> None:
+    """F2's decline check on path A's isotropic int8-pure plane: the top-128
+    directions keep about a third of its variance, so the build with
+    ``min_variance = 0.5`` must decline and say so."""
+    import contextlib
+    import io
+
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.index.projscan import ProjScanIndex
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        index = ProjScanIndex.build_from_device_rows(
+            (dv["rowsn_q"], dv["rown_scales"]), num_rows=int(dv["n_pad"]),
+            d_prime=CONFIG.projscan_dprime, num_valid=N_DOCS, min_variance=0.5,
+        )
+    said = out.getvalue().strip().splitlines()
+    if index is not None or not any("projscan declined" in line for line in said):
+        raise AssertionError(f"projscan did not decline the isotropic plane: {said}")
+    log(f"path F decline check on path A's isotropic int8-pure plane: {said[-1]} "
+        f"({time.perf_counter() - t:.1f} s)")
+
+
+def path_ivf(db, corpus, extra, plane, seed: int, card: str) -> None:
+    """F1: the IVF index on a float16 DB through ``query`` and
+    ``query_batch_arrays``, exact over its probed candidates, timed beside
+    the exact scan of the same DB."""
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.index.flat import FlatIndex
+    from hyperdb_tpu_torch.index.ivf import IVFIndex, default_nlist
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    index = db.ann_index
+    if not isinstance(index, IVFIndex) or index.nlist != default_nlist(N_DOCS):
+        raise AssertionError(f"F1: expected an IVF index of {default_nlist(N_DOCS)} lists")
+    budget = max(TOP_K * 20, -(-N_DOCS * 5 // 100))  # the engine's default ann_percent
+
+    # b = 1: the single-query pre-filter and the gathered scan
+    q1 = index_queries(seed + 91, 8, corpus)
+    got = [db.query(q, top_k=TOP_K) for q in q1]
+    ids = np.array([[r[2] for r in row] for row in got])
+    vals = np.array([[r[1] for r in row] for row in got], dtype=np.float32)
+    cands = [index.probe(q, budget) for q in q1]
+    swaps, err = check_over_candidates("F1 query", plane, q1, cands, ids, vals)
+    if list(ids[0, :2]) != [4, 17]:
+        raise AssertionError(f"F1: duplicate rows 4/17 not first in lower-id order: {ids[0, :2]}")
+    one = q1[1]
+
+    def single():
+        db.clear_cache()
+        return db.query(one, top_k=TOP_K)
+
+    ms = wall_ms(single, 5)
+    flat, db.ann_index = db.ann_index, FlatIndex(db.ann_metric, DIM)
+    ms_exact = wall_ms(single, 5)
+    db.ann_index = flat
+    log(f"path F1 ivf query b=1: {len(q1)} queries exact over their probed candidates "
+        f"({swaps} tied swaps, score err {err:.3g}, tol {ATOL}; {cands[1].size} candidates of "
+        f"budget {budget}); ms/query={ms:.3f} against the exact scan {ms_exact:.3f} [{card}]")
+
+    for b in (64, 512):
+        q = index_queries(seed + 92 + b, b, corpus)
+        CONFIG.batch_ivf_min_rows = N_DOCS
+        zero_launches(G)
+        ids, vals = db.query_batch_arrays(q, top_k=TOP_K)
+        if any(G.LAUNCHES.values()):
+            raise AssertionError(f"F1 b={b}: the IVF route launched a kernel: {G.LAUNCHES}")
+        t = time.perf_counter()
+        cand_ids, valid = index.probe_batch(q, budget)
+        probe_ms = (time.perf_counter() - t) * 1e3
+        checked = range(0, b, b // 16)
+        swaps, err = check_over_candidates(
+            f"F1 b={b}", plane, q[list(checked)], [cand_ids[valid[i]] for i in checked],
+            ids[list(checked)], vals[list(checked)],
+        )
+        exact = cosine_reference(plane, N_DOCS, q, TOP_K).ids.cpu().numpy()
+        recall = recall_at_k(ids, exact)
+        if recall < IVF_RECALL_FLOOR:
+            raise AssertionError(f"F1 b={b}: recall@{TOP_K} {recall:.4f} < {IVF_RECALL_FLOOR}")
+        wall = run_batch(db, q, f"path F1 ivf b={b}", card)
+        CONFIG.batch_ivf_min_rows = 1 << 62
+        wall_exact = run_batch(db, q, f"path F1 exact scan, same DB, b={b}", card)
+        log(f"path F1 ivf b={b}: {len(checked)} checked queries exact over their probed "
+            f"candidates ({swaps} tied swaps, score err {err:.3g}); union of probed clusters "
+            f"U={cand_ids.size} rows ({cand_ids.size / N_DOCS:.3f} of the corpus); recall@{TOP_K} "
+            f"against the full exact scan = {recall:.5f}; probe (host) {probe_ms:.1f} ms of "
+            f"{wall:.3f}; ivf/exact = {wall / wall_exact:.2f} [{card}]")
+
+    # an incremental add of 1 % more rows joins the clusters: no re-clustering
+    centroids, nlist = index.centroids.copy(), index.nlist
+    t = time.perf_counter()
+    db.add([{"ts": 0.5} for _ in range(len(extra))], vectors=extra)
+    add_s = time.perf_counter() - t
+    if db.ann_index is not index or index.nlist != nlist or not np.array_equal(index.centroids, centroids):
+        raise AssertionError("F1: the 1 % add re-clustered instead of taking add_rows")
+    if index.num_rows != N_DOCS + len(extra):
+        raise AssertionError(f"F1: the index holds {index.num_rows} rows after the add")
+    dv = db._store.device_view(db.source_indices)
+    q = index_queries(seed + 95, 4, corpus)
+    q[3] = extra[7].astype(np.float32)  # a new row finds itself
+    got = [db.query(x, top_k=TOP_K) for x in q]
+    ids = np.array([[r[2] for r in row] for row in got])
+    vals = np.array([[r[1] for r in row] for row in got], dtype=np.float32)
+    budget = max(TOP_K * 20, -(-len(db.documents) * 5 // 100))
+    swaps, err = check_over_candidates(
+        "F1 after add", dv["rows_norm"], q, [index.probe(x, budget) for x in q], ids, vals
+    )
+    if ids[3, 0] != N_DOCS + 7:
+        raise AssertionError(f"F1: the added row 7 did not find itself: {ids[3, :3]}")
+    log(f"path F1 add of {len(extra)} rows: {add_s:.2f} s, add_rows (nlist {nlist}, centroids "
+        f"unchanged); answers exact over the probed candidates ({swaps} tied swaps, score err "
+        f"{err:.3g}) [{card}]")
+
+
+def projscan_breakdown(db, q: np.ndarray, wall: float, card: str) -> None:
+    """Device time of each projscan stage of one batch (the functions the
+    route calls, on the same inputs) beside its host-clock time."""
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.index import projscan as P
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops.quantized import _quantize_device
+    from hyperdb_tpu_torch.ops.ranking import exact_top_k
+
+    index = db.ann_index
+    dv = db._store.device_view(db.source_indices)
+    n, b, k = dv["n_pad"], q.shape[0], 16
+    qn = np.linalg.norm(q, axis=1, keepdims=True)
+    qt = torch.from_numpy((q / qn).astype(np.float32)).cuda()
+    G_ = min(n // G.GROUP, max(k, -(-CONFIG.projscan_overfetch // G.GROUP)))
+    qa_i8, qa_sc = _quantize_device(qt @ index.p_dev)
+    extra = G.make_extra(n, dv["row_valid"], None, device=qt.device)
+    gm = G.gmax_int8(qa_i8, qa_sc, index.a_i8, index.a_scales, extra)
+    gidx = exact_top_k(gm, G_)[1]
+    parts = {
+        "A_project_quantize": cuda_ms(lambda: _quantize_device(qt @ index.p_dev), 3, 1),
+        "A_gmax_int8": cuda_ms(lambda: G.gmax_int8(qa_i8, qa_sc, index.a_i8, index.a_scales, extra), 3, 1),
+        "A_select": cuda_ms(lambda: exact_top_k(gm, G_), 3, 1),
+        "B_gather_rescore_topk": cuda_ms(
+            lambda: P._stage_b(qt, dv["rowsn_q"], dv["rown_scales"], gidx, k, G.GROUP,
+                               dv["row_valid"], None), 3, 1),
+    }
+    log_breakdown(f"projscan cosine b={b} (G={G_} groups of {G.GROUP})", parts, wall, card)
+
+
+def phase_kernel_int8_projscan(index, seed: int, card: str) -> dict:
+    """``gmax_int8`` at projscan's stage-A shape, (1024, 2^20, 128) on the
+    index's own projected plane, with a masked group, masked rows, recency
+    and zero-scale rows: EQUAL to its plain version, timed beside its bound
+    and ``torch._int_mm`` + rescale + ``amax``."""
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops.quantized import _quantize_device
+
+    n_pad, dp = index.a_i8.shape
+    b = 1024
+    v = index.a_i8.clone()
+    vs = index.a_scales.clone()
+    for rows in (slice(5, 6), slice(640, 768)):
+        v[rows] = 0
+        vs[rows] = 0
+    extra = kernel_masks(n_pad, N_DOCS, seed + 96, recency=True)
+    q = torch.from_numpy(np.random.default_rng(seed + 97).standard_normal((b, DIM), dtype=np.float32)).cuda()
+    q_i8, q_scale = _quantize_device((q / q.norm(dim=1, keepdim=True)) @ index.p_dev)
+    got = G.gmax_int8(q_i8, q_scale, v, vs, extra)
+    torch.cuda.synchronize()
+    want = G.gmax_int8_plain(q_i8, q_scale, v, vs, extra)
+    err = max_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"gmax_int8 at d'={dp} differs from its plain version (max abs {err:.3g})")
+    if not torch.isneginf(got[:, 1]).all():
+        raise AssertionError("gmax_int8 at projscan depth: the masked group is off")
+
+    lib = None
+    if hasattr(torch, "_int_mm"):
+        def lib():
+            s = torch._int_mm(q_i8, v.T).float() * (q_scale[:, None] * vs[None, :]) + extra
+            return s.view(b, n_pad // G.GROUP, G.GROUP).amax(-1)
+
+        try:  # the yardstick only: the port never calls it
+            lib()
+        except RuntimeError as e:
+            log(f"library call torch._int_mm not usable here ({str(e).splitlines()[0]})")
+            lib = None
+    ms = cuda_ms(lambda: G.gmax_int8(q_i8, q_scale, v, vs, extra), reps=20)
+    plain_ms = cuda_ms(lambda: G.gmax_int8_plain(q_i8, q_scale, v, vs, extra), reps=5, warmup=1)
+    lib_ms = None if lib is None else cuda_ms(lib, reps=5, warmup=1)
+    bound_ms, bound_by = scan_bound_ms(b, n_pad, dp, n_pad // G.GROUP, "int8")
+    lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
+    log(f"kernel gmax_int8 at projscan depth: b={b} n={n_pad} d'={dp} max_abs_err={err:.3g} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_txt} bound_ms={bound_ms:.4f} "
+        f"({bound_by}) bound/ms={bound_ms / ms:.3f} [{card}]")
+    del v, vs
+    return {"b": b, "n": n_pad, "d": dp, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def path_projscan(db, corpus, kernels, seed: int, card: str) -> None:
+    """F2: the projscan index on an int8-pure DB through
+    ``query_batch_arrays`` at b = 1024 and 4096: ``gmax_int8`` launched
+    once per batch on the ``wgmma`` variant, ids and scores identical to
+    the same route with stage A's plain version."""
+    from hyperdb_tpu_torch.index.projscan import ProjScanIndex
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    index = db.ann_index
+    if not isinstance(index, ProjScanIndex) or index.d_prime != 128:
+        raise AssertionError(f"F2: expected a projscan index at d'=128, got {index}")
+    dv = db._store.device_view(db.source_indices)
+    kernels["gmax_int8"]["at_projscan_depth"] = phase_kernel_int8_projscan(index, seed, card)
+
+    for b in (1024, 4096):
+        q = index_queries(seed + 98 + b, b, corpus)
+        zero_launches(G)
+        ids, vals = db.query_batch_arrays(q, top_k=TOP_K)
+        launches = dict(G.LAUNCHES)
+        by_variant = check_variant(G, f"projscan b={b}")
+        if launches != {**{name: 0 for name in launches}, "gmax_int8": 1}:
+            raise AssertionError(f"F2 b={b}: expected gmax_int8 once, launched {launches}")
+        kernels["gmax_int8"]["launches"] += 1
+        kernel_fn = G.gmax_int8
+        G.gmax_int8 = G.gmax_int8_plain  # the same route with the plain stage A
+        try:
+            ids_p, vals_p = db.query_batch_arrays(q, top_k=TOP_K)
+        finally:
+            G.gmax_int8 = kernel_fn
+        if G.LAUNCHES != launches:
+            raise AssertionError("F2: the plain stage A launched a kernel")
+        if not (np.array_equal(ids, ids_p) and np.array_equal(vals, vals_p)):
+            raise AssertionError(f"F2 b={b}: the kernel route and the plain stage A disagree")
+        m = min(b, 1024)
+        exact = int8_reference(dv, q[:m], TOP_K)
+        recall = recall_at_k(ids[:m], exact.ids.cpu().numpy())
+        if b == 1024 and list(ids[0, :2]) != [4, 17]:
+            raise AssertionError(f"F2: duplicate rows 4/17 not first in lower-id order: {ids[0, :2]}")
+        log(f"path F2 projscan b={b}: launches {json.dumps(launches)} by variant "
+            f"{json.dumps(by_variant)}; ids and scores identical to the plain stage A; "
+            f"recall@{TOP_K} against the int8-pure exact scan of the same planes "
+            f"(first {m} queries) = {recall:.5f}")
+        wall = run_batch(db, q, f"path F2 projscan b={b}", card)
+        projscan_breakdown(db, q, wall, card)
+        flat, db.ann_index = db.ann_index, None
+        run_batch(db, q, f"path F2 exact int8-pure scan, same DB, b={b}", card)
+        db.ann_index = flat
+
+
+def phase_index_files(db, q: np.ndarray, name: str, card: str, **make_kw) -> None:
+    """F3: a checkpoint round trip into a fresh DB on the card: the index
+    state comes back equal and the answers bit-identical."""
+    import shutil
+    from pathlib import Path
+
+    from hyperdb_tpu_torch import HyperDB
+
+    out = Path(__file__).resolve().parent / "build" / "smoke_persist"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        ids, vals = db.query_batch_arrays(q, top_k=TOP_K)
+        t = time.perf_counter()
+        db.save(str(out / f"{name}.ckpt"), format="checkpoint")
+        save_s = time.perf_counter() - t
+        fresh = HyperDB(device="cuda", **make_kw)
+        t = time.perf_counter()
+        fresh.load(str(out / f"{name}.ckpt"), format="checkpoint")
+        load_s = time.perf_counter() - t
+        want, got = db.ann_index.state(), fresh.ann_index.state()
+        for key, value in want.items():
+            if not np.array_equal(np.asarray(got[key]), np.asarray(value)):
+                raise AssertionError(f"F3 {name}: index state '{key}' differs after the round trip")
+        got_ids, got_vals = fresh.query_batch_arrays(q, top_k=TOP_K)
+        if not (np.array_equal(got_ids, ids) and np.array_equal(got_vals, vals)):
+            raise AssertionError(f"F3 {name}: answers after the round trip differ")
+        log(f"path F3 {name} checkpoint: save {save_s:.2f} s, load {load_s:.2f} s; index state "
+            f"({', '.join(sorted(k for k in want if k != 'kind'))}) equal, b={q.shape[0]} ids and "
+            f"scores bit-identical [{card}]")
+        del fresh
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def path_indexes(docs, kernels, seed: int, card: str) -> None:
+    """Path F: the IVF and projscan indexes at 1M x 384 on the card."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.core import db as DB
+    from hyperdb_tpu_torch.index.projscan import fit_projection
+
+    t = time.perf_counter()
+    corpus = make_spectral_corpus(seed, N_DOCS + N_DOCS // 100)
+    corpus, extra = corpus[:N_DOCS], corpus[N_DOCS:]  # extra: F1's 1 % add
+    sample = corpus[:: max(1, N_DOCS // 65536)].astype(np.float32)
+    sample /= np.linalg.norm(sample, axis=1, keepdims=True)
+    _, captured = fit_projection(sample, 128)
+    log(f"path F corpus: {corpus.shape} {corpus.dtype}, {F_CENTRES} centres with scales "
+        f"(j+1)^-0.5 under a seeded rotation, noise {F_NOISE}; top-128 directions keep "
+        f"{captured:.4f} of the unit rows' variance; {time.perf_counter() - t:.1f} s")
+    if captured < 0.6:
+        raise AssertionError(f"path F corpus keeps only {captured:.3f} of its variance at d'=128")
+
+    # F1: IVF on a float16 DB
+    threshold = DB.IVF_THRESHOLD
+    DB.IVF_THRESHOLD = N_DOCS
+    try:
+        t = time.perf_counter()
+        db = HyperDB(documents=docs, vectors=corpus, fp_precision="float16")
+        torch.cuda.synchronize()
+        log(f"path F1 ivf db build: {time.perf_counter() - t:.1f} s, nlist {db.ann_index.nlist}, "
+            f"{db.ann_index.num_rows} rows [{card}]")
+    finally:
+        DB.IVF_THRESHOLD = threshold
+    plane = db._store.device_view(db.source_indices)["rows_norm"]
+    try:
+        path_ivf(db, corpus, extra, plane, seed, card)
+        CONFIG.batch_ivf_min_rows = N_DOCS
+        phase_index_files(db, index_queries(seed + 99, 512, corpus), "ivf", card)
+    finally:
+        CONFIG.batch_ivf_min_rows = 1 << 62
+    del db, plane
+    torch.cuda.empty_cache()
+
+    # F2: projscan on an int8-pure DB
+    threshold = CONFIG.projscan_threshold
+    CONFIG.projscan_threshold = N_DOCS
+    try:
+        t = time.perf_counter()
+        db = HyperDB(documents=docs, vectors=corpus, fp_precision="float16",
+                     device_precision="int8-pure")
+        torch.cuda.synchronize()
+        index = db.ann_index
+        log(f"path F2 projscan db build: {time.perf_counter() - t:.1f} s, d'={index.d_prime}, "
+            f"captured variance {index.captured_variance:.4f}, projected plane "
+            f"{tuple(index.a_i8.shape)} int8 + scales = "
+            f"{(index.a_i8.numel() + 4 * index.a_scales.numel()) / 2**20:.1f} MiB [{card}]")
+    finally:
+        CONFIG.projscan_threshold = threshold
+    path_projscan(db, corpus, kernels, seed, card)
+    phase_index_files(db, index_queries(seed + 100, 1024, corpus), "projscan", card,
+                      device_precision="int8-pure")
+    del db, corpus, extra
     torch.cuda.empty_cache()
 
 
@@ -1292,6 +1751,7 @@ def path_chunked(corpus, seed: int, card: str) -> None:
     for metric, kind, plane, atol in (
         ("cosine_similarity", "cosine", "rows_norm", ATOL),
         ("manhattan_distance", "manhattan", "rows", MANHATTAN_ATOL),
+        ("euclidean_metric", "euclidean", "rows", ATOL),
     ):
         for label, kw, mask in (
             ("no filter", {}, None),
@@ -1310,8 +1770,49 @@ def path_chunked(corpus, seed: int, card: str) -> None:
             run_batch(db, q, f"path D chunked {metric}, {label}", card, metric=metric, **kw)
     if any(G.LAUNCHES.values()) or any(L.LAUNCHES.values()):
         raise AssertionError("the chunked branch launched a kernel")
+    euclidean_cost(db, q, dv, card)
     del db, dv
     torch.cuda.empty_cache()
+
+
+def euclidean_f32(q, v):
+    """The plain euclidean score as the port computed it before the float64
+    expansion: |v|^2 - 2 q.v + |q|^2 in f32 (kept here to time beside it)."""
+    q32, v32 = q.float(), v.float()
+    d2 = (v32 * v32).sum(-1)[None, :] - 2.0 * (q32 @ v32.T) + (q32 * q32).sum(-1)[:, None]
+    return 1.0 / (1.0 + torch.sqrt(torch.clamp(d2, min=0.0)))
+
+
+def euclidean_cost(db, q: np.ndarray, dv, card: str) -> None:
+    """What the plain routes' float64 euclidean expansion
+    (``ops/metrics.euclidean_scores``) costs beside the f32 one, on the same
+    inputs, in the order f64, f32, f32, f64: the chunked doc-level branch
+    through the entry point at b = 64 (host clock), and the plain scan
+    ``ranking.rank_top_k`` over the 2^20-row plane at b = 64 (device
+    clock). Also prints both formulas' score of the planted copy of row 4."""
+    from hyperdb_tpu_torch.ops import metrics as M
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    f64 = M._METRIC_FNS["euclidean_metric"]
+    rows, qt = dv["rows"], torch.from_numpy(q).cuda()
+    chunked, plain = {"f64": [], "f32": []}, {"f64": [], "f32": []}
+    try:
+        for name, fn in (("f64", f64), ("f32", euclidean_f32), ("f32", euclidean_f32), ("f64", f64)):
+            M._METRIC_FNS["euclidean_metric"] = fn
+            chunked[name].append(wall_ms(
+                lambda: db.query_batch_arrays(q, top_k=TOP_K, metric="euclidean_metric"), 5
+            ))
+            plain[name].append(cuda_ms(
+                lambda: R.rank_top_k(qt, rows, TOP_K, metric="euclidean_metric"), reps=5
+            ))
+    finally:
+        M._METRIC_FNS["euclidean_metric"] = f64
+    planted = {name: float(fn(qt[:1], rows[4:5])[0, 0]) for name, fn in (("f64", f64), ("f32", euclidean_f32))}
+    exact = float(1.0 / (1.0 + torch.linalg.norm(qt[0].double() - rows[4].double())))
+    log(f"euclidean cost, f64 expansion / f32 expansion ({rows.shape[0]} rows): chunked b=64 "
+        f"ms/batch {chunked['f64']} / {chunked['f32']}; plain rank_top_k b=64 device ms "
+        f"{plain['f64']} / {plain['f32']}; planted row 4 score {planted['f64']:.8f} / "
+        f"{planted['f32']:.8f}, f64 difference form {exact:.8f} [{card}]")
 
 
 # ---------------------------------------------------------------- path E: text
@@ -1762,6 +2263,9 @@ def main() -> int:
     path_int8(docs, corpus, kernels, plane, args.seed, card)
     del db, dv, plane
     torch.cuda.empty_cache()
+
+    # 12. path F: the IVF and projscan indexes
+    path_indexes(docs, kernels, args.seed, card)
 
     # 10. path D: the chunked doc-level branch
     path_chunked(corpus, args.seed, card)

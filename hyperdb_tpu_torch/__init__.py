@@ -13,6 +13,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from hyperdb_tpu_torch.ops.metrics import METRICS, scores  # noqa: E402
+from hyperdb_tpu_torch.ops.ranking import (  # noqa: E402
+    rank_top_k,
+    ranking_algorithm_sort,
+    recency_scores,
+)
 from hyperdb_tpu_torch.core.db import HyperDB  # noqa: E402
 
-__all__ = ["HyperDB"]
+__all__ = ["HyperDB", "METRICS", "rank_top_k", "ranking_algorithm_sort", "scores"]

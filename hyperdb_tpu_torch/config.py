@@ -22,6 +22,16 @@ def _env_int(name: str, default: int):
     return field(default_factory=read)
 
 
+def _env_float(name: str, default: float):
+    def read() -> float:
+        try:
+            return float(os.environ.get(name, default))
+        except ValueError:
+            return default
+
+    return field(default_factory=read)
+
+
 @dataclass
 class EngineConfig:
     # Minimum padded row count before dot/cosine scans take the grouped
@@ -53,10 +63,29 @@ class EngineConfig:
     # with the group maxes taken as a max over each run outside the kernel
     # (bitwise identical — max is exact).
     pallas_sub_dual: int = _env_int("HYPERDB_PALLAS_SUB_DUAL", 0)
-    # Row count from which an int8-pure corpus asks for the two-stage
-    # reduced-rank index (index/projscan in the JAX package; opt-in). The
-    # index is not ported: a corpus at or above it raises.
+    # Row count from which a corpus builds an IVF index (index/ivf.py) and
+    # routes eligible single queries through its candidate pre-filter.
+    # Opt-in (1<<62 disables), as in the JAX package.
+    ivf_threshold: int = _env_int("HYPERDB_IVF_THRESHOLD", 1 << 62)
+    # IVF cluster count of the DB's index builds; 0 = the sqrt-scaled
+    # default (ivf.default_nlist). The JAX package declares this name but
+    # never reads it, so a nonzero value makes the two packages cluster
+    # differently.
+    ivf_nlist: int = _env_int("HYPERDB_IVF_NLIST", 0)
+    # Row count from which query_batch routes an IVF-indexed corpus through
+    # the shared probe frontier (query/engine._rank_block_ivf). Opt-in.
+    batch_ivf_min_rows: int = _env_int("HYPERDB_BATCH_IVF_MIN_ROWS", 1 << 62)
+    # Row count from which an int8-pure corpus builds the two-stage
+    # reduced-rank index (index/projscan.py) and serves dot/cosine through
+    # its stage-A scan plus an exact int8 rescore. Opt-in.
     projscan_threshold: int = _env_int("HYPERDB_PROJSCAN_THRESHOLD", 1 << 62)
+    # Stage-A rank (projected dimension) and candidate overfetch per query.
+    projscan_dprime: int = _env_int("HYPERDB_PROJSCAN_DPRIME", 96)
+    projscan_overfetch: int = _env_int("HYPERDB_PROJSCAN_OVERFETCH", 256)
+    # Decline the projscan build (exact scan instead) when the top-d' PCA
+    # directions keep less than this fraction of the sample variance.
+    # 0 disables the gate.
+    projscan_min_variance: float = _env_float("HYPERDB_PROJSCAN_MIN_VARIANCE", 0.5)
     # Rank on the host (NumPy) when corpus_rows * batch is at most this many
     # score cells: below it a device launch costs more than the scan.
     # 0 disables.

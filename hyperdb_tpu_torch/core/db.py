@@ -8,9 +8,10 @@ documents (chunked and embedded) or precomputed vectors, ``add`` /
 binary checkpoint, file-compatible with the JAX package), ``warmup``,
 ``size``, ``dict``, ``stats`` and the reference's helper methods. The host
 keeps the documents and bookkeeping; the encoder and the scans run on
-``device`` (``"cuda"`` unless the caller asks for ``"cpu"``). The IVF and
-projscan indexes raise ``NotImplementedError`` until their slice
-(ROADMAP.md queue 1, item 10).
+``device`` (``"cuda"`` unless the caller asks for ``"cpu"``). The opt-in
+indexes of the JAX package build here under the same knobs: IVF from
+``IVF_THRESHOLD`` rows (``HYPERDB_IVF_THRESHOLD``), projscan for int8-pure
+corpora from ``CONFIG.projscan_threshold`` rows.
 
 ``device_precision`` selects the device planes: ``"auto"``, ``"int8"``
 (int8 scan, exact rescore against the float plane) or ``"int8-pure"``
@@ -44,8 +45,10 @@ from hyperdb_tpu_torch.utils.trace import Stats
 _ACCEPTED_ANN_METRICS = ("angular", "euclidean", "manhattan", "hamming", "dot", "cosine")
 _FP_PRECISIONS = ("float16", "float32", "float64")
 
-# The JAX package's IVF opt-in (HYPERDB_IVF_THRESHOLD, disabled by default).
-IVF_THRESHOLD = int(os.environ.get("HYPERDB_IVF_THRESHOLD", 1 << 62))
+# Corpora with at least this many rows build an IVF index (opt-in, disabled
+# by default): HYPERDB_IVF_THRESHOLD, or rebind this name, as in the JAX
+# package.
+IVF_THRESHOLD = CONFIG.ivf_threshold
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,10 +68,6 @@ def resolve_device(device=None) -> torch.device:
         if device.index is None:  # "cuda" names the current card: make it explicit
             device = torch.device("cuda", torch.cuda.current_device())
     return device
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, {item}")
 
 
 class HyperDB:
@@ -172,6 +171,10 @@ class HyperDB:
         self.ann_metric = ann_metric
         self.ann_index = None
         self.ann_dim: int | None = None
+        # rows at the last IVF/projscan build (the 1.5x rebuild rule) and at
+        # the last projscan decline (no new attempt before 1.5x growth)
+        self._ivf_built_rows = 0
+        self._projscan_declined_rows = 0
 
         if vectors is not None:
             self.validate_vector_uniformity(vectors)
@@ -324,8 +327,17 @@ class HyperDB:
             "Expected list, tuple, or dict."
         )
 
+    def validate_keys(self, keys_to_validate, keys_validation, name_a, name_b):
+        _nested.validate_keys(keys_to_validate, keys_validation, name_a, name_b)
+
+    def collect_document_keys(self, documents):
+        return _nested.collect_document_keys(documents)
+
     def filter_document(self, document):
         return _nested.filter_document(document, self.select_keys)
+
+    def get_nested_value(self, dictionary, keys):
+        return _nested.get_nested_value(dictionary, keys)
 
     def _store_metadata(self, document, unique_index: int) -> None:
         metadata = self._compute_metadata(document, unique_index)
@@ -358,22 +370,82 @@ class HyperDB:
 
     def _build_ann_index(self) -> None:
         if self.vectors is None or self.vectors.shape[0] == 0:
+            # a stale index over deleted rows must not survive into a later add
             self.ann_index = None
+            self._ivf_built_rows = 0
             return
+        if self.ann_dim is None:
+            self.ann_dim = int(self.vectors.shape[1])
         self.vectors_normalized = self.ann_metric == "cosine"
+        n = int(self.vectors.shape[0])
         if (
             self._store.precision == "int8-pure"
-            and self.vectors.shape[0] >= CONFIG.projscan_threshold
+            and n >= CONFIG.projscan_threshold
             and self.ann_metric in ("cosine", "angular", "dot")
         ):
-            _not_ported("the projscan two-stage index", "item 10")
-        if self.vectors.shape[0] >= IVF_THRESHOLD:
-            _not_ported("the IVF index", "item 10")
-        self.ann_index = FlatIndex(self.ann_metric, int(self.vectors.shape[1]))
+            self._build_projscan(n)
+            return
+        if n >= IVF_THRESHOLD:
+            from hyperdb_tpu_torch.index.ivf import IVFIndex
+
+            # sample and assign on the plane queries use anyway (unit-norm
+            # rows for the metrics IVF clusters normalized); int8-pure
+            # stores hold no float plane and build from the host master
+            device_rows = None
+            if self._store.precision != "int8-pure":
+                dv = self._store.device_view(self.source_indices)
+                device_rows = (
+                    dv["rows_norm"] if self.ann_metric in ("cosine", "angular", "dot")
+                    else dv["rows"]
+                )
+            self.ann_index = IVFIndex.build(
+                self.vectors, metric=self.ann_metric, nlist=CONFIG.ivf_nlist or None,
+                n_trees=self.n_trees, device_rows=device_rows, device=self.device,
+            )
+            self._ivf_built_rows = n
+        else:
+            self.ann_index = FlatIndex(self.ann_metric, int(self.vectors.shape[1]))
+
+    def _build_projscan(self, n: int) -> None:
+        """The two-stage index over the int8 plane queries score (raw rows
+        for dot, unit-norm rows otherwise). A flat-spectrum decline stands
+        until the corpus outgrows the declined size by 50 %."""
+        from hyperdb_tpu_torch.index.projscan import ProjScanIndex
+
+        declined = self._projscan_declined_rows
+        if declined and n <= int(declined * 1.5):
+            self.ann_index = None
+            self._ivf_built_rows = 0
+            return
+        dv = self._store.device_view(self.source_indices)
+        plane = (
+            (dv["rows_q"], dv["row_scales"]) if self.ann_metric == "dot"
+            else (dv["rowsn_q"], dv["rown_scales"])
+        )
+        self.ann_index = ProjScanIndex.build_from_device_rows(
+            plane,
+            num_rows=int(dv["n_pad"]),
+            d_prime=CONFIG.projscan_dprime,
+            num_valid=self._store.num_rows,
+            min_variance=CONFIG.projscan_min_variance or None,
+        )
+        self._projscan_declined_rows = n if self.ann_index is None else 0
+        self._ivf_built_rows = 0 if self.ann_index is None else n
 
     def _update_ann_index(self) -> None:
-        """Refresh the index after a mutation. The flat index is rebuilt;
-        the JAX package's IVF grows incrementally here (item 10)."""
+        """Refresh the index after a mutation: appended rows join the
+        existing IVF clusters (one assignment matmul) until the corpus
+        outgrows the clustering by 50 %; everything else rebuilds (projscan
+        has no incremental form)."""
+        idx = self.ann_index
+        n = self._store.num_rows
+        if (
+            hasattr(idx, "add_rows")  # IVF; projscan rebuilds
+            and n > idx.num_rows
+            and n <= int(self._ivf_built_rows * 1.5)
+        ):
+            idx.add_rows(self.vectors[idx.num_rows :], idx.num_rows)
+            return
         self._build_ann_index()
 
     def set_ann_metric(self, new_metric: str) -> None:
@@ -598,26 +670,32 @@ class HyperDB:
     def commit_pending(self) -> None:
         """Apply staged documents/vectors (reference hyperdb.py:496-545).
         Metadata is computed before any state changes, so a failure leaves
-        nothing half-committed."""
+        nothing half-committed: it prints "Error occurred during commit: ...
+        Rolling back transaction." and returns with the state unchanged and
+        the staged buffers kept (the reference's soft failure)."""
         if not self.pending_vectors:
             return
-        rows = np.concatenate(self.pending_vectors, axis=0)
-        if rows.shape[0] != len(self.pending_source_indices):
-            raise ValueError("Inconsistency detected in new source indices.")
-        start = len(self.documents)
-        staged_metadata = [
-            (start + offset, self._compute_metadata(document, start + offset))
-            for offset, document in enumerate(self.pending_documents)
-        ]
-        self._store.append(rows)
-        self.source_indices.extend(self.pending_source_indices)
-        for offset, (chunk_count, record_split) in enumerate(self._pending_splits):
-            if record_split:
-                self.split_info[start + offset] = chunk_count
-        self.documents.extend(self.pending_documents)
-        for unique_index, metadata in staged_metadata:
-            if metadata:
-                self._metadata_index[unique_index] = metadata
+        try:
+            rows = np.concatenate(self.pending_vectors, axis=0)
+            if rows.shape[0] != len(self.pending_source_indices):
+                raise ValueError("Inconsistency detected in new source indices.")
+            start = len(self.documents)
+            staged_metadata = [
+                (start + offset, self._compute_metadata(document, start + offset))
+                for offset, document in enumerate(self.pending_documents)
+            ]
+            self._store.append(rows)  # raises, changing nothing, on a dimension mismatch
+            self.source_indices.extend(self.pending_source_indices)
+            for offset, (chunk_count, record_split) in enumerate(self._pending_splits):
+                if record_split:
+                    self.split_info[start + offset] = chunk_count
+            self.documents.extend(self.pending_documents)
+            for unique_index, metadata in staged_metadata:
+                if metadata:
+                    self._metadata_index[unique_index] = metadata
+        except Exception as e:  # the reference's soft failure: print, keep the stage
+            print(f"Error occurred during commit: {e}. Rolling back transaction.")
+            return
         self.pending_vectors.clear()
         self.pending_documents.clear()
         self.pending_source_indices.clear()
@@ -816,6 +894,94 @@ class HyperDB:
             kept_docs.append(doc)
         return kept_vecs, kept_docs
 
+    def _filter_by_metadata(
+        self, metadata_filter, filtered_vectors, filtered_documents, kept_indices=None
+    ):
+        """(reference hyperdb.py:1218-1256)"""
+        self.validate_keys(
+            metadata_filter.keys(), self.metadata_keys, "metadata_filter", "metadata_keys"
+        )
+        mask = _filters.metadata_doc_mask(self, metadata_filter)
+        pos_by_id = {id(doc): i for i, doc in enumerate(self.documents)}
+        kept_vecs, kept_docs = [], []
+        for vec, doc in zip(filtered_vectors, filtered_documents):
+            pos = pos_by_id.get(id(doc))
+            if pos is not None and mask[pos]:
+                kept_vecs.append(vec)
+                kept_docs.append(doc)
+        return np.array(kept_vecs, dtype=self.fp_precision), kept_docs
+
+    def _apply_filters(self, filters, kept_indices=None, base_vectors=None, base_documents=None):
+        """List-based filter combinator (reference hyperdb.py:1258-1308)."""
+        vecs = self.vectors if base_vectors is None else base_vectors
+        docs = self.documents if base_documents is None else base_documents
+        doc_ids = set(id(d) for d in docs)
+        for name, params in filters or []:
+            if name not in _filters.FILTER_NAMES:
+                raise ValueError(f"Invalid filter name {name}")
+            if name == "skip_doc":
+                continue
+            if name == "key":
+                vecs, sel = self.filter_by_key(vecs, docs, params)
+            elif name == "metadata":
+                if not self.metadata_keys:
+                    raise ValueError(
+                        "The 'metadata_keys' parameter has not been set in "
+                        "HyperDB(). Cannot filter by metadata."
+                    )
+                _, sel = self._filter_by_metadata(dict(params), vecs, docs)
+            elif name == "sentence":
+                _, sel = self.filter_by_sentence(vecs, docs, params)
+            doc_ids &= set(id(d) for d in sel)
+        kept_vecs = [v for v, d in zip(vecs, docs) if id(d) in doc_ids]
+        kept_docs = [d for d in docs if id(d) in doc_ids]
+        return kept_vecs, kept_docs
+
+    def _generate_and_validate_query_vector(self, query_input):
+        return _engine.generate_and_validate_query_vector(self, query_input)
+
+    def _handle_timestamps(self, recency_bias, timestamp_key, filtered_documents):
+        """The recency term of ``filtered_documents`` (reference
+        hyperdb.py:1310-1346), found by identity, then by equality."""
+        pos_by_id = {id(doc): i for i, doc in enumerate(self.documents)}
+        doc_indices = [
+            pos_by_id[id(d)] if id(d) in pos_by_id else self.documents.index(d)
+            for d in filtered_documents
+        ]
+        dense = _engine.handle_timestamps(self, recency_bias, timestamp_key, doc_indices)
+        if dense is None:
+            return None
+        return dense[np.asarray(doc_indices, dtype=np.int64)]
+
+    def _execute_query(
+        self,
+        query_input,
+        top_k: int = 5,
+        return_similarities: bool = True,
+        filters=None,
+        recency_bias: float = 0,
+        timestamp_key=None,
+        metric: str = "cosine_similarity",
+        ann_percent: int = 5,
+    ):
+        return _engine.execute_query(
+            self, query_input, top_k=top_k, return_similarities=return_similarities,
+            filters=filters, recency_bias=recency_bias, timestamp_key=timestamp_key,
+            metric=metric, ann_percent=ann_percent,
+        )
+
+    def _cached_query(self, hashable_key, args=None):
+        """The LRU lookup of :meth:`query`. ``args`` carries the call's
+        arguments (an array's key is an opaque bytes token); without it the
+        key itself is executed, as in the reference."""
+        if hashable_key in self.lru_cache:
+            self.cache_hits += 1
+            return self.lru_cache[hashable_key]
+        self.cache_misses += 1
+        result = self._execute_query(*(hashable_key if args is None else args))
+        self.lru_cache[hashable_key] = result
+        return result
+
     # ------------------------------------------------------------------
     # query
     # ------------------------------------------------------------------
@@ -847,14 +1013,7 @@ class HyperDB:
         cached in the LRU."""
         args = (query_input, top_k, return_similarities, filters,
                 recency_bias, timestamp_key, metric, ann_percent)
-        key = self._hashable_key(*args)
-        if key in self.lru_cache:
-            self.cache_hits += 1
-            return self.lru_cache[key]
-        self.cache_misses += 1
-        result = _engine.execute_query(self, *args)
-        self.lru_cache[key] = result
-        return result
+        return self._cached_query(self._hashable_key(*args), args)
 
     def query_batch(
         self,
@@ -1060,12 +1219,13 @@ class HyperDB:
         else:
             # a previous corpus's index must not survive into the new state
             self.ann_index = None
+            self._ivf_built_rows = 0
 
     def _load_ann_index(self, storage_file, preload_ann_into_memory: bool = True):
-        """Restore the ``.ann`` sidecar, or rebuild the index when there is
-        none. A sidecar that is not an npz (the reference's Annoy forest)
-        warns and rebuilds; an IVF or projscan state raises
-        ``NotImplementedError`` (item 10)."""
+        """Restore the ``.ann`` sidecar (flat, IVF or projscan, in the JAX
+        package's layout), or rebuild the index when there is none. A
+        sidecar that is not an npz (the reference's Annoy forest) warns and
+        rebuilds."""
         ann_index_file = str(storage_file) + ".ann"
         if not os.path.exists(ann_index_file):
             self._build_ann_index()
@@ -1090,11 +1250,19 @@ class HyperDB:
                 )
                 self._build_ann_index()
             else:
-                from hyperdb_tpu_torch.index import index_from_state
-
-                self.ann_index = index_from_state(state)
+                self._restore_index(state)
         if preload_ann_into_memory:
             self._preload_into_memory()
+
+    def _restore_index(self, state: dict) -> None:
+        """Install a persisted index on this DB's device; a restored IVF or
+        projscan records its build size, so the next append takes the
+        incremental path."""
+        from hyperdb_tpu_torch.index import index_from_state
+
+        self.ann_index = index_from_state(state, device=self.device)
+        if getattr(self.ann_index, "is_ann", False):
+            self._ivf_built_rows = int(self.ann_index.num_rows)
 
     def _preload_into_memory(self) -> None:
         """Build every device plane serving can touch now (on the card),

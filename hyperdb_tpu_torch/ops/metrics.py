@@ -104,11 +104,6 @@ def dot_f32(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return q.float() @ v.float().T
 
 
-def _row_sq_norms(x: torch.Tensor) -> torch.Tensor:
-    x32 = x.float()
-    return torch.sum(x32 * x32, dim=-1)
-
-
 def dot_scores(q, v):
     """Raw inner products (ranking_algorithm.py:24-30)."""
     return qv_dot(q, v)
@@ -128,13 +123,22 @@ def cosine_scores_prenormalized(q, v_normalized):
 
 def euclidean_scores(q, v):
     """1/(1 + L2 distance) (ranking_algorithm.py:44-52), expanded as
-    |v|^2 - 2 q.v + |q|^2 so the work is one matmul."""
+    |v|^2 - 2 q.v + |q|^2 so the work is one matmul.
+
+    The expansion runs in float64 and only the score is rounded to f32: in
+    f32 the three terms of a row's distance to itself (or to a near copy)
+    cancel to a residue of a few ulps of |v|^2, which the square root
+    turns into a score gap of ~3e-3 (a self-match at 0.9972 instead of
+    1.0). The f64 products of f32 (or narrower) operands are exact, so the
+    residue drops below 1e-15 and the score agrees with the reference's
+    difference form ``sqrt(sum((q - v)^2))``."""
+    q64, v64 = q.double(), v.double()
     d2 = (
-        _row_sq_norms(v)[None, :]
-        - 2.0 * qv_dot(q, v)
-        + _row_sq_norms(q)[:, None]
+        torch.sum(v64 * v64, dim=-1)[None, :]
+        - 2.0 * (q64 @ v64.T)
+        + torch.sum(q64 * q64, dim=-1)[:, None]
     )
-    return 1.0 / (1.0 + torch.sqrt(torch.clamp(d2, min=0.0)))
+    return (1.0 / (1.0 + torch.sqrt(torch.clamp(d2, min=0.0)))).float()
 
 
 def manhattan_scores(q, v):

@@ -5,8 +5,9 @@ the router :func:`rank_top_k`, the plain grouped form
 :func:`rank_top_k_grouped`, the grouped euclidean/hamming/jaccard form
 :func:`rank_top_k_grouped_metric`, the streamed manhattan scan
 :func:`rank_top_k_manhattan_stream`, the chunk-aware document ranking
-:func:`rank_docs_top_k`, and the materialising fallback over the seven
-metrics. Batches at or above ``CONFIG.pallas_gmax_f_min_batch`` over a bf16
+:func:`rank_docs_top_k`, the materialising fallback over the seven
+metrics, the IVF candidate scan :func:`rank_gathered`, and the reference's
+list-level :func:`ranking_algorithm_sort`. Batches at or above ``CONFIG.pallas_gmax_f_min_batch`` over a bf16
 plane go to the stage-1 kernels (``ops/gmax.py``); manhattan batches at or
 above ``CONFIG.pallas_l1_min_batch`` to the L1 kernels (``ops/l1.py``).
 
@@ -18,6 +19,7 @@ one the grouped routes rely on (see :func:`exact_top_k`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from hyperdb_tpu_torch.config import CONFIG
@@ -504,3 +506,94 @@ def rank_docs_top_k(
         vals.append(v)
         idx.append(i)
     return torch.cat(vals), torch.cat(idx)
+
+
+def rank_gathered(
+    queries, rows, cand_ids, cand_valid, k: int, metric: str = "cosine_similarity",
+    recency=None, prenormalized: bool = False,
+):
+    """Score only the candidate rows ``cand_ids`` and take the top-k
+    (``ranking.rank_gathered`` in the JAX package): the IVF fast path.
+
+    ``cand_ids`` is a padded (C,) vector of global row ids with
+    ``cand_valid`` marking live entries: (C,) for one shared candidate set,
+    or (B, C) for the batched IVF shape (one union of probed clusters, each
+    query restricted to the clusters it probed). Scores: the query metric
+    (cosine over the prenormalized plane), NaN -> -inf, then + recency (a
+    (C,) vector aligned with ``cand_ids``), then invalid entries -> -inf;
+    ties go to the lower position. Queries go a chunk at a time, so the
+    (B, C) scores are never all materialised. Returns (values (B, k) f32,
+    global row ids (B, k) int64)."""
+    sub = rows[cand_ids]
+    chunk = max(1, _CHUNK_CELLS // max(1, sub.shape[0]))
+    vals, idx = [], []
+    for a in range(0, queries.shape[0], chunk):
+        qc = queries[a : a + chunk]
+        if metric == "cosine_similarity" and prenormalized:
+            s = _metrics.cosine_scores_prenormalized(qc, sub)
+        else:
+            s = scores(qc, sub, metric)
+        s = s.float().masked_fill(torch.isnan(s), NEG_INF)
+        if recency is not None:
+            s = s + recency[None, :]
+        valid = cand_valid[a : a + chunk] if cand_valid.ndim == 2 else cand_valid[None, :]
+        v, pos = exact_top_k(s.masked_fill(~valid, NEG_INF), k)
+        vals.append(v)
+        idx.append(cand_ids[pos].long())
+    return torch.cat(vals), torch.cat(idx)
+
+
+def recency_scores(timestamps, recency_bias: float):
+    """``recency_bias * exp(t - max(t))`` as a float32 NumPy vector
+    (ranking_algorithm.py:183, Q17)."""
+    t = np.asarray(timestamps, dtype=np.float64)
+    if t.size == 0:
+        return np.zeros(0, dtype=np.float32)
+    return (recency_bias * np.exp(t - t.max())).astype(np.float32)
+
+
+def ranking_algorithm_sort(
+    vectors,
+    query_vector,
+    top_k: int = 5,
+    metric: str = "cosine_similarity",
+    timestamps=None,
+    recency_bias: float = 0,
+    device=None,
+):
+    """The reference's ``hyperDB_ranking_algorithm_sort``
+    (ranking_algorithm.py:149-204): NaN input or an unknown metric raises, a
+    single row prints ``Info: Only one document left.`` and returns a (1, 1)
+    score; otherwise the top-k row ids and scores of one query, computed by
+    :func:`rank_top_k` on ``device`` (the card unless the caller asks for
+    the CPU)."""
+    from hyperdb_tpu_torch.core.db import resolve_device
+
+    vectors = np.asarray(vectors)
+    query = np.asarray(query_vector)
+    if np.isnan(vectors).any() or np.isnan(query).any():
+        raise ValueError("Vectors and query_vector should not contain NaN values.")
+    if metric not in _metrics.METRICS:
+        raise ValueError(f"Unknown metric: {metric}")
+    if vectors.ndim != 2:
+        raise ValueError("Vectors should be a 2D array of shape (N, d).")
+    dev = resolve_device(device)
+    q = query.reshape(1, -1) if query.ndim == 1 else query[:1]
+    recency = None
+    if timestamps is not None and len(timestamps) > 0:
+        r = recency_scores(np.asarray(timestamps), recency_bias)
+        if r.shape[0] != vectors.shape[0]:
+            raise ValueError("timestamps must have one entry per vector row.")
+        recency = torch.from_numpy(r).to(dev)
+    qt = torch.from_numpy(np.asarray(q, dtype=np.float32)).to(dev)
+    vt = torch.from_numpy(np.asarray(vectors, dtype=np.float32)).to(dev)
+    n = vectors.shape[0]
+    if n == 1:
+        vals, _ = rank_top_k(qt, vt, k=1, metric=metric, recency=recency)
+        print("Info: Only one document left.")
+        return np.array([0]), np.array([vals[0].cpu().numpy()])
+    k = max(0, min(int(top_k), n))
+    if k == 0:
+        return [], []
+    vals, idx = rank_top_k(qt, vt, k=k, metric=metric, recency=recency)
+    return idx[0].cpu().numpy(), vals[0].cpu().numpy()

@@ -141,12 +141,11 @@ def load_checkpoint(db, directory: str, load_ann_index: bool = True) -> None:
     if not load_ann_index:
         # a previous corpus's index on this db instance must not survive
         db.ann_index = None
+        db._ivf_built_rows = 0
     elif os.path.exists(index_path):
         from hyperdb_tpu_torch.core.db import _unflatten_state
-        from hyperdb_tpu_torch.index import index_from_state
 
         with np.load(index_path, allow_pickle=False) as f:
-            istate = _unflatten_state(dict(f.items()))
-        db.ann_index = index_from_state(istate)
+            db._restore_index(_unflatten_state(dict(f.items())))
     else:
         db._build_ann_index()

@@ -7,8 +7,11 @@ on float, int8 and int8-pure planes, with the grouped, kernel and streamed
 routes of all seven metrics; chunked corpora (several rows per document,
 ranked at document level); the key-filter override branch; the tiny-corpus
 host path; and text queries, embedded on the host path or kept on the
-device as a query block. The IVF and projscan indexes are not ported: a
-corpus that asks for one raises ``NotImplementedError`` in ``core/db.py``.
+device as a query block. With an IVF index (``index/ivf.py``) a single
+query is pre-filtered to its probed candidates and scored on them alone
+(``ranking.rank_gathered``), and a batch can share one probe frontier
+(:func:`_rank_block_ivf`); with a projscan index an int8-pure scan runs as
+its two stages (``index/projscan.py``).
 
 Preserved reference semantics (SURVEY.md §2.4): Q10/Q11 metric naming and
 the brute-force INFO message, Q13 empty-candidate handling, Q16/Q17
@@ -249,6 +252,19 @@ def execute_query(
     filters = list(filters) if filters is not None else None
     base_mask = _base_mask(num_docs, filters)
     mask = base_mask.copy()
+
+    # ANN pre-filter (Q12): candidate rows and their documents. projscan
+    # accelerates inside _rank_block instead, where it needs cand_rows None
+    cand_rows = None
+    index = db.ann_index
+    if use_ann and getattr(index, "is_ann", False) and getattr(index, "kind", None) != "projscan":
+        budget = max(top_k * 20, -(-int(base_mask.sum()) * ann_percent // 100))
+        cand_rows = index.probe(query_vector, budget)
+        cand_docs = np.zeros(num_docs, dtype=bool)
+        if cand_rows.size:
+            cand_docs[np.asarray(db.source_indices, dtype=np.int64)[cand_rows]] = True
+        mask &= cand_docs
+
     override = None
     if filters:
         mask, override = _filters.apply_filters(db, filters, mask)
@@ -260,6 +276,7 @@ def execute_query(
                 "INFO: Falling back to brute-force search after no results "
                 "from ANN pre-filtering."
             )
+            cand_rows = None
             mask, override = _filters.apply_filters(db, filters, base_mask.copy())
         else:
             log.info("INFO: No document matches your query.")
@@ -293,7 +310,8 @@ def execute_query(
 
     with db.stats.phase("query.rank"):
         doc_ids, vals = _rank_block(
-            db, query_vector[None, :], mask, override, recency, metric, top_k
+            db, query_vector[None, :], mask, override, recency, metric, top_k,
+            cand_rows=cand_rows,
         )
     doc_ids, scores_out = doc_ids[0], vals[0]
 
@@ -421,7 +439,8 @@ def execute_query_batch_arrays(
             )
 
     filters = list(filters) if filters is not None else None
-    mask = _base_mask(num_docs, filters)
+    base_mask = _base_mask(num_docs, filters)
+    mask = base_mask.copy()
     override = None
     if filters:
         mask, override = _filters.apply_filters(db, filters, mask)
@@ -436,7 +455,22 @@ def execute_query_batch_arrays(
     recency = handle_timestamps(
         db, recency_bias, timestamp_key, np.flatnonzero(mask)
     )
-    doc_ids, scores_out = _rank_block(db, q_block, mask, override, recency, metric, k)
+    doc_ids = scores_out = None
+    if (
+        METRIC_TO_ANN.get(metric) == db.ann_metric
+        and hasattr(db.ann_index, "probe_batch")  # IVF
+        and override is None
+        # IVF probing is host arithmetic: a device block stays on the exact
+        # masked scan instead of paying a fetch
+        and not device_block
+        and num_docs == db._store.num_rows
+        and num_docs >= CONFIG.batch_ivf_min_rows
+        and db._store.precision != "int8-pure"
+    ):
+        budget = max(top_k * 20, -(-int(base_mask.sum()) * ann_percent // 100))
+        doc_ids, scores_out = _rank_block_ivf(db, q_block, mask, recency, metric, k, budget)
+    if doc_ids is None:
+        doc_ids, scores_out = _rank_block(db, q_block, mask, override, recency, metric, k)
 
     db.stats.record("query.batch_arrays", _time.perf_counter() - start_time)
     db.stats.bump("query.batch_queries", n_out)
@@ -446,8 +480,82 @@ def execute_query_batch_arrays(
     )
 
 
-def _rank_block(db, q_block, mask, override, recency, metric, top_k):
-    """Run the ranking call; returns ((B, k) doc_ids, (B, k) scores)."""
+def _rank_block_ivf(db, q_block, mask, recency, metric, top_k, budget):
+    """Batched IVF: one shared probe frontier for the query block.
+
+    The union of the clusters the queries probed is gathered once and the
+    whole block scores it in one pass, each query restricted to its own
+    clusters by a (B, U) validity matrix. Queries left with fewer than
+    ``top_k`` masked candidates take the exact masked scan (the batched Q13
+    fallback). Returns (None, None) when probing yields nothing: the caller
+    then scans the block exactly."""
+    cand_ids, valid = db.ann_index.probe_batch(q_block, budget)
+    if cand_ids.size == 0:
+        return None, None
+    valid = valid & mask[cand_ids][None, :]
+    counts = valid.sum(axis=1)
+    need_fallback = np.flatnonzero(counts < top_k)
+    ivf_rows = np.flatnonzero(counts >= top_k)
+
+    nq = q_block.shape[0]
+    doc_ids = np.zeros((nq, top_k), dtype=np.int64)
+    scores_out = np.full((nq, top_k), -np.inf, dtype=np.float32)
+    if ivf_rows.size:
+        q = torch.from_numpy(np.ascontiguousarray(q_block[ivf_rows])).to(db._store.device)
+        k_pad = min(_pad_pow2(top_k), bucket_size(len(db.documents)))
+        idx_h, vals_h = _rank_candidates(
+            db, q, cand_ids, valid[ivf_rows], recency, metric, k_pad
+        )
+        doc_ids[ivf_rows] = idx_h[:, :top_k]
+        scores_out[ivf_rows] = vals_h[:, :top_k]
+    if need_fallback.size:
+        fb_ids, fb_vals = _rank_block(
+            db, q_block[need_fallback], mask, None, recency, metric, top_k
+        )
+        doc_ids[need_fallback] = fb_ids
+        scores_out[need_fallback] = fb_vals
+    return doc_ids, scores_out
+
+
+def _rank_candidates(db, q, cand, valid, recency, metric, k_pad):
+    """Score a query block ``q`` (on the device) against the unchunked rows
+    ``cand`` alone (``ranking.rank_gathered``): ``valid`` is None (every
+    candidate live for every query) or a (B, len(cand)) matrix. The
+    candidates are padded to a bucket size, the pad inert. Returns host
+    ((B, k) row ids, (B, k) scores)."""
+    store = db._store
+    device = store.device
+    dv = store.device_view(db.source_indices)
+    n_cand = int(cand.size)
+    c_pad = bucket_size(n_cand)
+    ids = np.zeros(c_pad, dtype=np.int64)
+    ids[:n_cand] = cand
+    live = np.zeros(c_pad if valid is None else (valid.shape[0], c_pad), dtype=bool)
+    live[..., :n_cand] = True if valid is None else valid
+    rec_c = None
+    if recency is not None:
+        rc = np.zeros(c_pad, dtype=np.float32)
+        rc[:n_cand] = recency[cand]
+        rec_c = torch.from_numpy(rc).to(device)
+    prenorm = metric == "cosine_similarity"
+    vals, idx = _ranking.rank_gathered(
+        q,
+        dv["rows_norm"] if prenorm else dv["rows"],
+        torch.from_numpy(ids).to(device),
+        torch.from_numpy(live).to(device),
+        k=min(k_pad, c_pad),
+        metric=metric,
+        recency=rec_c,
+        prenormalized=prenorm,
+    )
+    return fetch(idx, vals)
+
+
+def _rank_block(db, q_block, mask, override, recency, metric, top_k, cand_rows=None):
+    """Run the ranking call; returns ((B, k) doc_ids, (B, k) scores).
+    ``cand_rows`` (single queries with an IVF index) restricts an unchunked
+    float corpus to the probed rows, scored alone; the mask already carries
+    the same restriction for every other route."""
     num_docs = len(db.documents)
     store = db._store
     device = store.device
@@ -489,6 +597,18 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
             q_host = q_host.astype(np.float32, copy=False)
         q = torch.from_numpy(q_host).to(device)
     k_pad = min(_pad_pow2(top_k), bucket_size(num_docs))
+
+    if (
+        cand_rows is not None
+        and cand_rows.size
+        and override is None
+        and num_docs == store.num_rows
+        and store.precision != "int8-pure"  # no float rows to gather from
+    ):
+        cand = cand_rows[mask[cand_rows]]
+        if cand.size:
+            idx_h, vals_h = _rank_candidates(db, q, cand, None, recency, metric, k_pad)
+            return idx_h[:, :top_k], vals_h[:, :top_k]
 
     if override is not None:
         # Key-filter path: per-document override vectors (rows == docs).
@@ -548,18 +668,38 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k):
                 qq = torch.from_numpy(
                     np.ascontiguousarray((q32 / qn).astype(q_host.dtype))
                 ).to(device)
-            rescore = None
-            if precision == "int8":
-                rescore = dv["rows_norm"] if prenorm else dv["rows"]
-            vals, idx = rank_top_k_int8(
-                qq,
-                dv["rowsn_q"] if prenorm else dv["rows_q"],
-                dv["rown_scales"] if prenorm else dv["row_scales"],
-                k=k_eff,
-                row_mask=row_mask_dev,
-                recency=rec_pad,
-                rescore_rows=rescore,
-            )
+            psidx = db.ann_index
+            if (
+                getattr(psidx, "kind", None) == "projscan"
+                and precision == "int8-pure"
+                and METRIC_TO_ANN.get(metric) == db.ann_metric  # Q11
+                and psidx.num_rows == n_pad
+                and cand_rows is None
+            ):
+                # the opt-in two-stage scan: stage B rescores on the same
+                # int8 plane the exact scan reads
+                vals, idx = psidx.search(
+                    qq,
+                    dv["rowsn_q"] if prenorm else dv["rows_q"],
+                    dv["rown_scales"] if prenorm else dv["row_scales"],
+                    k=k_eff,
+                    overfetch=CONFIG.projscan_overfetch,
+                    row_mask=row_mask_dev,
+                    recency=rec_pad,
+                )
+            else:
+                rescore = None
+                if precision == "int8":
+                    rescore = dv["rows_norm"] if prenorm else dv["rows"]
+                vals, idx = rank_top_k_int8(
+                    qq,
+                    dv["rowsn_q"] if prenorm else dv["rows_q"],
+                    dv["rown_scales"] if prenorm else dv["row_scales"],
+                    k=k_eff,
+                    row_mask=row_mask_dev,
+                    recency=rec_pad,
+                    rescore_rows=rescore,
+                )
         elif precision == "int8-pure":
             raise ValueError(
                 f"device_precision='int8-pure' supports only dot_product and "

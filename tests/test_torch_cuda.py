@@ -693,3 +693,105 @@ def test_save_load_on_card_bit_equal(text_db, tmp_path, monkeypatch, fmt):
     np.testing.assert_array_equal(got_ids, ids)
     np.testing.assert_array_equal(got_vals, vals)
     assert fresh.documents == text_db.documents and fresh.split_info == text_db.split_info
+
+
+# ---------------------------------------------------------------- indexes
+
+
+@pytest.mark.parametrize("b,n,d", [(1024, 1 << 14, 128), (256, 1 << 14, 64), (64, 4096, 96)])
+def test_gmax_int8_equals_plain_at_projscan_depths(dev, b, n, d):
+    """``gmax_int8`` at the depth projscan's stage A gives it (d' = 128: one
+    128-byte TMA box) and at depths under one box: EQUAL to its plain
+    version, with masks, recency and zero-scale rows."""
+    rng = np.random.default_rng(d)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    v[5] = 0.0
+    v_i8, sc = Q.quantize_rows(v)
+    q_i8, q_scale = Q._quantize_device(torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev))
+    mask = rng.random(n) < 0.9
+    mask[256:384] = False
+    rec = (rng.random(n) * 0.05).astype(np.float32)
+    extra = G.make_extra(n, torch.from_numpy(mask).to(dev), torch.from_numpy(rec).to(dev), device=dev)
+    args = (q_i8, q_scale, torch.from_numpy(v_i8).to(dev), torch.from_numpy(sc).to(dev), extra)
+    assert G.kernel_variant(n, d, 1) == "wgmma"
+    before = dict(G.LAUNCHES_BY_VARIANT)
+    got = G.gmax_int8(*args)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES_BY_VARIANT["wgmma"] == before["wgmma"] + 1
+    assert torch.equal(got, G.gmax_int8_plain(*args))
+    assert torch.isneginf(got[:, 2]).all()
+
+
+def _clustered_rows(n, d, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((32, d)).astype(np.float32) * 3
+    v = centers[rng.integers(0, 32, size=n)] + rng.standard_normal((n, d)).astype(np.float32)
+    return v.astype(np.float32)
+
+
+def test_ivf_db_on_card_matches_cpu(dev, monkeypatch):
+    """An IVF DB built on the card against the same DB on the CPU: with the
+    card's index state carried to the CPU DB, both probe the same candidates
+    and answer the same (single queries and the batched frontier)."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.core import db as DB
+    from hyperdb_tpu_torch.index.ivf import IVFIndex
+
+    monkeypatch.setattr(DB, "IVF_THRESHOLD", 1000)
+    monkeypatch.setattr(CONFIG, "batch_ivf_min_rows", 1000)
+    v = _clustered_rows(20000, 64, 3)
+    docs = list(range(len(v)))
+    card = HyperDB(docs, v, device=dev)
+    cpu = HyperDB(docs, v, device="cpu")
+    assert isinstance(card.ann_index, IVFIndex) and card.ann_index.device.type == "cuda"
+    np.testing.assert_array_equal(card.ann_index.row_order, cpu.ann_index.row_order)
+    cpu.ann_index = IVFIndex.from_state(card.ann_index.state(), device="cpu")
+    q = v[:256] + 0.05
+    for a in range(4):
+        np.testing.assert_array_equal(card.ann_index.probe(q[a], 1000), cpu.ann_index.probe(q[a], 1000))
+        g, c = card.query(q[a], top_k=10), cpu.query(q[a], top_k=10)
+        assert [r[2] for r in g] == [r[2] for r in c]
+        assert np.abs(np.array([r[1] for r in g]) - [r[1] for r in c]).max() <= ATOL
+    gi, gv = card.query_batch_arrays(q, top_k=10)
+    pi, pv = cpu.query_batch_arrays(q, top_k=10)
+    assert np.abs(gv - pv).max() <= ATOL and ((gi == pi) | (np.abs(gv - pv) <= ATOL)).all()
+
+
+def test_projscan_db_on_card_matches_cpu(dev, monkeypatch):
+    """A projscan DB on the card (stage A on ``gmax_int8``, 128-row groups,
+    once per batch) against the same DB on the CPU with the 128-row route
+    forced there (the wrapper's plain version). Both DBs then take one
+    index with an identity projection, so both quantize the same query
+    bits: ids and scores must be identical."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.index import projscan as P
+
+    monkeypatch.setattr(CONFIG, "projscan_threshold", 1)
+    v = _clustered_rows(1 << 14, 128, 4)
+    docs = list(range(len(v)))
+    card = HyperDB(docs, v, device=dev, device_precision="int8-pure")
+    cpu = HyperDB(docs, v, device="cpu", device_precision="int8-pure")
+    assert card.ann_index.d_prime == 128 and card.ann_index.a_i8.is_cuda
+    q = v[:1024] + 0.05
+    before = G.LAUNCHES["gmax_int8"]
+    card.query_batch_arrays(q, top_k=10)
+    assert G.LAUNCHES["gmax_int8"] == before + 1
+
+    dv = cpu._store.device_view(cpu.source_indices)
+    a = dv["rowsn_q"].float() * dv["rown_scales"][:, None]
+    a_i8, a_sc = Q._quantize_device(a)
+    state = P.ProjScanIndex(np.eye(128, dtype=np.float32), a_i8, a_sc, dv["n_pad"],
+                            num_valid=len(v)).state()
+    card.ann_index = P.ProjScanIndex.from_state(state, device=dev)
+    cpu.ann_index = P.ProjScanIndex.from_state(state, device="cpu")
+    before = G.LAUNCHES["gmax_int8"]
+    gi, gv = card.query_batch_arrays(q, top_k=10)
+    assert G.LAUNCHES["gmax_int8"] == before + 1
+    real = P._stage_a_on_kernel
+    monkeypatch.setattr(P, "_stage_a_on_kernel", lambda qa, a, g: a.device.type == "cpu" or real(qa, a, g))
+    pi, pv = cpu.query_batch_arrays(q, top_k=10)
+    np.testing.assert_array_equal(gi, pi)
+    np.testing.assert_array_equal(gv, pv)
+    assert G.LAUNCHES["gmax_int8"] == before + 1  # the CPU ran the plain version

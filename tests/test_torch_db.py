@@ -194,11 +194,15 @@ def test_gmax_route_runs_plain_on_cpu(dbs, monkeypatch):
 
 
 def test_not_ported_branches_raise(monkeypatch, tmp_path):
-    """Only the IVF and projscan indexes (item 10) still raise; text
-    embedding and persistence answer."""
+    """No branch raises any more: the IVF index builds over an embedded
+    corpus at the threshold, and text embedding and persistence answer
+    (``tests/test_torch_ivf.py`` holds the index in full)."""
+    from hyperdb_tpu_torch.index.ivf import IVFIndex
+
     monkeypatch.setattr(TDB_MODULE, "IVF_THRESHOLD", 16)
-    with pytest.raises(NotImplementedError, match="IVF.*item 10"):
-        TorchDB(["some text"] * 20, device="cpu")
+    ivf_db = TorchDB([f"some text {i}" for i in range(20)], device="cpu")
+    assert isinstance(ivf_db.ann_index, IVFIndex) and ivf_db.ann_index.num_rows == 20
+    assert len(ivf_db.query("some text 3", top_k=3)) == 3
     monkeypatch.undo()
     assert TorchDB(["some text"], device="cpu").size() == 1
     docs, v = _corpus(seed=1, n=32)

@@ -263,11 +263,17 @@ def test_device_precision_argument_and_environment(monkeypatch):
 
 
 def test_unported_branches_still_raise(monkeypatch, tmp_path):
+    """Nothing raises any more: an int8-pure corpus at the projscan
+    threshold builds the index (``tests/test_torch_projscan.py`` holds it in
+    full), the other branches answer."""
+    from hyperdb_tpu_torch.index.projscan import ProjScanIndex
+
     docs, v = _corpus(seed=1, n=64)
     monkeypatch.setattr(TORCH_CONFIG, "projscan_threshold", 16)
-    with pytest.raises(NotImplementedError, match="projscan.*item 10"):
-        TorchDB(docs, v, device="cpu", device_precision="int8-pure")
-    TorchDB(docs, v, device="cpu", device_precision="int8")  # projscan is int8-pure only
+    pure = TorchDB(docs, v, device="cpu", device_precision="int8-pure")
+    assert isinstance(pure.ann_index, ProjScanIndex) and pure.ann_index.d_prime == D
+    # projscan is int8-pure only
+    assert TorchDB(docs, v, device="cpu", device_precision="int8").ann_index.state()["kind"] == "flat"
     monkeypatch.setattr(TORCH_CONFIG, "grouped_topk_min_rows", 32)
     monkeypatch.setattr(TORCH_CONFIG, "host_path_max_cells", 0)
     db = TorchDB(docs, v, device="cpu")

@@ -280,3 +280,66 @@ def test_l1_source_carries_its_note():
     doc = L.__doc__
     assert "hyperdb_tpu/ops/pallas_l1.py" in doc and "Bound on the H100: operations" in doc
     assert cuda_build.library_path("l1").name.startswith("libl1-")
+
+
+def test_index_thresholds_keep_the_card_default(monkeypatch):
+    """With an index asked for, ``HyperDB`` without ``device=`` still
+    raises where CUDA is missing: no index builds on the CPU by default."""
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.core import db as DB
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(DB, "IVF_THRESHOLD", 1)
+    monkeypatch.setattr(CONFIG, "projscan_threshold", 1)
+    v = np.ones((4, 8), np.float32)
+    for precision in ("auto", "int8-pure"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            hyperdb_tpu_torch.HyperDB([{"i": i} for i in range(4)], v, device_precision=precision)
+
+
+@pytest.mark.parametrize("kind", ["ivf", "projscan"])
+def test_index_restore_keeps_the_card_default(monkeypatch, kind):
+    """``index_from_state`` without ``device=`` restores onto the card, as
+    ``HyperDB`` and the index builds do: where CUDA is missing it raises
+    instead of keeping the state on the CPU."""
+    from hyperdb_tpu_torch.index import index_from_state
+    from hyperdb_tpu_torch.index.ivf import IVFIndex
+    from hyperdb_tpu_torch.index.projscan import ProjScanIndex
+
+    rows = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    if kind == "ivf":
+        state = IVFIndex.build(rows, nlist=4, device="cpu").state()
+    else:
+        state = ProjScanIndex.build(rows, d_prime=4, device="cpu").state()
+    assert index_from_state(state, device="cpu").kind == kind
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        index_from_state(state)
+
+
+def test_projscan_stage_a_raises_without_kernel(no_kernel_library, monkeypatch):
+    """A projscan stage A off the CPU reaches ``gmax_int8``; a kernel
+    library that cannot be built raises, and the group-16 scan never steps
+    in."""
+    from hyperdb_tpu_torch.index import projscan as P
+
+    monkeypatch.setattr(
+        P, "_quantize_device",
+        lambda x: (x.to(torch.int8), torch.empty((x.shape[0],), device=x.device)),
+    )
+    monkeypatch.setattr(P, "_gmax_int8_groups16", lambda *a, **kw: pytest.fail("group-16 scan"))
+    monkeypatch.setattr(G, "gmax_int8_plain", lambda *a, **kw: pytest.fail("plain version"))
+    n, d, dp = 1 << 14, 384, 128
+    index = P.ProjScanIndex(
+        np.eye(d, dp, dtype=np.float32),
+        torch.empty((n, dp), dtype=torch.int8, device="meta"),
+        torch.empty((n,), dtype=torch.float32, device="meta"),
+        n,
+    )
+    q = torch.empty((1024, d), dtype=torch.float32, device="meta")
+    v8 = torch.empty((n, d), dtype=torch.int8, device="meta")
+    scales = torch.empty((n,), dtype=torch.float32, device="meta")
+    before = dict(G.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        index.search(q, v8, scales, k=16, overfetch=256)
+    assert G.LAUNCHES == before

@@ -6,8 +6,9 @@ After a load the state must be equal to the saver's (documents,
 source_indices, split_info, metadata index, vectors bit for bit) and the
 answers the same as the saving package's: ids identical, scores within
 ``ATOL`` (bit-equal f32 rows, two summation orders). Index sidecars: a
-flat ``.ann`` round-trips, a foreign one warns and rebuilds, an IVF or
-projscan state raises ``NotImplementedError`` in the port (item 10).
+flat ``.ann`` round-trips, a foreign one warns and rebuilds, and the JAX
+package's IVF and projscan states load (``tests/test_torch_ivf.py`` and
+``tests/test_torch_projscan.py`` cross them both ways and compare answers).
 """
 
 import numpy as np
@@ -138,20 +139,21 @@ def test_port_round_trip_and_sidecars(tmp_path, capsys):
 
 
 def test_ivf_and_projscan_states_raise(tmp_path, monkeypatch):
-    """The JAX package's IVF sidecar and checkpoint index, and a projscan
-    state, raise in the port: never quietly replaced by a flat index."""
+    """The JAX package's IVF sidecar and checkpoint index used to raise in
+    the port; they now load as the same IVF state, never a flat index."""
     monkeypatch.setattr(JDB_MODULE, "IVF_THRESHOLD", 16)
     jdb = JaxDB(_docs(40))
-    assert jdb.ann_index.state()["kind"] == "ivf"
+    want = jdb.ann_index.state()
+    assert want["kind"] == "ivf"
     jdb.save(str(tmp_path / "ivf.pkl"))
     jdb.save(str(tmp_path / "ivf_ckpt"), format="checkpoint")
-    with pytest.raises(NotImplementedError, match="ivf index.*item 10"):
-        TorchDB(device="cpu").load(str(tmp_path / "ivf.pkl"))
-    with pytest.raises(NotImplementedError, match="ivf index.*item 10"):
-        TorchDB(device="cpu").load(str(tmp_path / "ivf_ckpt"), format="checkpoint")
-    np.savez(tmp_path / "ivf_ckpt" / "index.npz", kind="projscan")
-    with pytest.raises(NotImplementedError, match="projscan index.*item 10"):
-        TorchDB(device="cpu").load(str(tmp_path / "ivf_ckpt"), format="checkpoint")
+    for path, fmt in ((tmp_path / "ivf.pkl", "pickle"), (tmp_path / "ivf_ckpt", "checkpoint")):
+        tdb = TorchDB(device="cpu")
+        tdb.load(str(path), format=fmt)
+        got = tdb.ann_index.state()
+        assert got["kind"] == "ivf" and tdb._ivf_built_rows == len(tdb.vectors) > 40
+        for key in ("centroids", "row_order", "offsets"):
+            np.testing.assert_array_equal(got[key], want[key])
     # the same file loads when its index is declined
     db = TorchDB(device="cpu")
     db.load(str(tmp_path / "ivf.pkl"), load_ann_index=False)
