@@ -111,6 +111,29 @@ Phases, one or a few lines each on standard output:
    at (1024, 2^20, 128) on the index's own plane and timed beside its bound
    and ``torch._int_mm``. F3: a checkpoint round trip of each DB into a
    fresh DB on the card, index state equal and answers bit-identical.
+13. path G, serving and the CLI on the card (G1, G2, G4 over the main
+   path's DB before it is freed, G3 in path E). Each serving phase runs 8
+   load processes (``hyperdb_tpu_torch/tools/serve_load.py``, spawned as
+   processes of their own, never threads of this one), each with 4
+   keep-alive connections, for 1 s of warm-up and 5 s measured, and prints
+   q/s, p50 / p99 ms per request, flushes, mean and max flush, engine and
+   hand-back ms per flush, the worker's idle share and the CPU cores the
+   server and the clients used; 512 sampled responses are held tie-aware
+   (scores within 1e-5) to ``query_batch_arrays`` on the same block (the
+   float16 wire block; for text, the flush's own embeddings), and
+   ``/healthz`` and ``/stats`` must answer. G1: the native front end, binary
+   f32 queries, 32 in flight per connection, at ``max_batch`` 1024 (must
+   launch ``gmax_f_sub``) and at the CLI default 256, then the engine alone
+   at b = 256, 512, 1024; G2: the stdlib front end with its batcher
+   (``max_batch`` 64), JSON queries, one in flight per connection; G3: the
+   native front end over path E's text DB, ``text/plain`` queries, 16 in
+   flight per connection, ``max_batch`` 512 (the encoder's WordPiece must
+   be the C++ one); G4: ``python -m hyperdb_tpu_torch`` ``build`` of a
+   4096-document JSONL, ``stats`` and ``query --text`` on its checkpoint,
+   ``bench --batch 512 --iters 10`` on a checkpoint of the main path's DB,
+   each a process of its own on the card. Path E also times the encoder's
+   host tokenisation of 512 texts with the C++ WordPiece against the
+   Python path (ids equal).
 
 Then a JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
@@ -126,6 +149,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -173,6 +197,17 @@ IVF_RECALL_FLOOR = 0.9
 # and smallest row cosine (6.7e-4 and 0.99999 measured on an H100 over this
 # script's 1024 texts, PERF.md)
 ENC_MAX_ABS, ENC_MIN_COS = 5e-3, 0.9999
+# path G, serving: spawned load clients, each with SERVE_CONNS keep-alive
+# connections; a warm-up, then the measured window; SERVE_SAMPLE responses
+# of each phase held to query_batch_arrays on the same block
+SERVE_CLIENTS, SERVE_CONNS = 8, 4
+SERVE_WARMUP_S, SERVE_SECONDS = 1.0, 5.0
+SERVE_WINDOW_MS = 2.0
+SERVE_SAMPLE = 512
+SERVE_ATOL = ATOL
+G4_DOCS = 4096  # path G4: documents of the CLI's build
+ROOT = os.path.dirname(os.path.abspath(__file__))
+LOAD_TOOL = os.path.join(ROOT, "hyperdb_tpu_torch", "tools", "serve_load.py")
 NEG_INF = float("-inf")
 
 
@@ -2037,6 +2072,40 @@ def phase_text_queries(db, words, kernels, seed: int, card: str):
     return block, ids, vals
 
 
+def phase_tokenise(enc, docs, words, seed: int, card: str) -> None:
+    """E6: the encoder's host tokenisation (``_prep_batch``) of 512 texts
+    with the C++ WordPiece on ASCII texts (the JAX package's rule) against
+    the Python path for all, on path E's query texts and documents and on
+    copies of them without their non-ASCII words; the ids must be equal."""
+    from hyperdb_tpu_torch.core.chunker import document_text
+
+    tok = enc._tokenizer
+    sets = {
+        "queries": zipf_texts(np.random.default_rng(seed + 90), words, 512, 8, 16),
+        "documents": [document_text(d) for d in docs[:512]],
+    }
+    for name in list(sets):
+        sets[f"{name} (ASCII words only)"] = [
+            " ".join(w for w in t.split() if w.isascii()) for t in sets[name]]
+    for name, texts in sets.items():
+        times, ids = {}, {}
+        for path in ("C++", "Python"):
+            if path == "Python":
+                tok.text_ids = tok._python_text_ids  # every text through Python
+            try:
+                ids[path] = enc._prep_batch(texts)[0]  # warms the word caches
+                times[path] = wall_ms(lambda: enc._prep_batch(texts), 5)
+            finally:
+                if path == "Python":
+                    del tok.text_ids
+        if not np.array_equal(ids["C++"], ids["Python"]):
+            raise AssertionError(f"path E tokenise {name}: C++ and Python ids differ")
+        ascii_share = float(np.mean([t.isascii() for t in texts]))
+        log(f"path E tokenise {name}: b=512, {ascii_share:.3f} of the texts ASCII (C++); encoder "
+            f"tokenizer {times['C++']:.3f} ms, all in Python {times['Python']:.3f} ms; ids "
+            f"identical [{card}]")
+
+
 def phase_default_embedder(docs, words, seed: int, card: str) -> None:
     """E4: the default embedder (HYPERDB_DEFAULT_EMBEDDER unset: the hybrid
     of the local encoder and the 4096-d lexical hash, 4480-d) on the card,
@@ -2145,9 +2214,376 @@ def path_text(kernels, seed: int, card: str) -> None:
     db = phase_ingest(enc, docs, card)
     block, ids, vals = phase_text_queries(db, words, kernels, seed, card)
     phase_persistence(db, block, ids, vals, card)
+    phase_tokenise(enc, docs, words, seed, card)
+    text_serve_phase(db, words, kernels, seed, card)  # path G3
     del db, block
     torch.cuda.empty_cache()
     phase_default_embedder(docs, words, seed, card)
+
+
+# ---------------------------------------------------------------- path G: serving and the CLI
+
+
+def serve_dir():
+    """``build/smoke_serve/``, emptied: payloads, client results, checkpoints."""
+    import shutil
+    from pathlib import Path
+
+    out = Path(ROOT) / "build" / "smoke_serve"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    return out
+
+
+def native_stats(srv):
+    """A snapshot of the native front end's per-flush accounting."""
+    return {"flushes": srv.flushes, "queries": srv.flushed_queries, "engine_s": srv.engine_s,
+            "complete_s": srv.complete_s, "idle_s": srv.idle_s, "max_flush": srv.max_flush}
+
+
+class FlushSpy:
+    """Counts the stdlib batcher's engine calls (``db.query_batch``): its
+    flushes, their sizes and their time. Installed on the DB instance."""
+
+    def __init__(self, db):
+        self.db, self.real = db, db.query_batch
+        self.flushes = self.queries = self.max_flush = 0
+        self.engine_s = 0.0
+        db.query_batch = self
+
+    def __call__(self, q, **kw):
+        t = time.perf_counter()
+        out = self.real(q, **kw)
+        self.engine_s += time.perf_counter() - t
+        n = len(out)
+        self.flushes += 1
+        self.queries += n
+        self.max_flush = max(self.max_flush, n)
+        return out
+
+    def stats(self):
+        return {"flushes": self.flushes, "queries": self.queries, "engine_s": self.engine_s,
+                "complete_s": None, "idle_s": None, "max_flush": self.max_flush}
+
+    def remove(self):
+        del self.db.query_batch  # the class's method again
+
+
+def serve_phase(label, port, mode, payloads, conns, depth, work, card, stats, reset,
+                unique=False):
+    """Drive one front end with ``SERVE_CLIENTS`` load processes
+    (``tools/serve_load.py``, each ``conns`` keep-alive connections with
+    ``depth`` requests in flight): ``SERVE_WARMUP_S`` of warm-up, then
+    ``SERVE_SECONDS`` measured. ``stats()`` snapshots the front end's flush
+    accounting; ``reset()`` zeroes its max flush at the window's start.
+    Prints one line; returns the merged samples [(client, payload index,
+    ids, scores)]. Any failed request or client raises."""
+    files = []
+    for k, p in enumerate(payloads):
+        path = work / f"{label}-{k}.{'json' if mode == 'text' else 'npy'}"
+        if mode == "text":
+            path.write_text(json.dumps(p))
+        else:
+            np.save(path, p)
+        files.append(path)
+    start_at = time.time() + 2.0
+    procs = [
+        subprocess.Popen([
+            sys.executable, LOAD_TOOL, "--port", str(port), "--mode", mode,
+            "--payloads", str(f), "--out", str(work / f"{label}-{k}.npz"),
+            "--conns", str(conns), "--depth", str(depth), "--warmup", str(SERVE_WARMUP_S),
+            "--seconds", str(SERVE_SECONDS), "--start-at", repr(start_at), "--top-k", str(TOP_K),
+            "--sample", str(-(-SERVE_SAMPLE // (SERVE_CLIENTS * conns))),
+        ] + (["--unique"] if unique else []))
+        for k, f in enumerate(files)
+    ]
+    try:
+        time.sleep(max(0.0, start_at + SERVE_WARMUP_S - time.time()))
+        reset()
+        s0, t0, me0 = stats(), time.perf_counter(), os.times()
+        time.sleep(max(0.0, start_at + SERVE_WARMUP_S + SERVE_SECONDS - time.time()))
+        s1, t1, me1 = stats(), time.perf_counter(), os.times()
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = [np.load(work / f"{label}-{k}.npz") for k in range(len(procs))]
+    for k, (rc, r) in enumerate(zip(rcs, results)):
+        if rc or int(r["errors"]):
+            raise AssertionError(f"path G {label}: client {k} exited {rc} with {int(r['errors'])} "
+                                 f"failed requests: {r['first_error']}")
+    count = sum(int(r["count"]) for r in results)
+    lat = np.concatenate([r["lat_ms"] for r in results])
+    if count == 0:
+        raise AssertionError(f"path G {label}: no response in the measured window")
+    flushes = s1["flushes"] - s0["flushes"]
+    queries = s1["queries"] - s0["queries"]
+    engine = s1["engine_s"] - s0["engine_s"]
+    wall = t1 - t0
+    if s0["idle_s"] is None:  # the stdlib front end has no single worker
+        idle = f"1 - engine share {1.0 - engine / wall:.4f}"
+    else:
+        idle = (f"hand-back ms/flush "
+                f"{1e3 * (s1['complete_s'] - s0['complete_s']) / max(flushes, 1):.3f}, "
+                f"worker idle share {(s1['idle_s'] - s0['idle_s']) / wall:.4f}")
+    server_cores = (me1.user + me1.system - me0.user - me0.system) / wall
+    client_cores = sum(float(r["cpu_s"]) for r in results) / (SERVE_WARMUP_S + SERVE_SECONDS)
+    log(f"path G {label}: q/s={count / SERVE_SECONDS:.1f} p50_ms={np.percentile(lat, 50):.3f} "
+        f"p99_ms={np.percentile(lat, 99):.3f} ({len(procs)} clients x {conns} connections x "
+        f"{depth} in flight); flushes {flushes}, mean flush {queries / max(flushes, 1):.1f}, "
+        f"max flush {s1['max_flush']}, engine ms/flush {1e3 * engine / max(flushes, 1):.3f}, "
+        f"{idle} over {wall:.3f} s; CPU: server process {server_cores:.2f} cores, clients "
+        f"{client_cores:.2f} cores, of {os.cpu_count()} [{card}]")
+    samples = [(k, int(i), ids, sc) for k, r in enumerate(results)
+               for i, ids, sc in zip(r["sample_idx"], r["sample_ids"], r["sample_scores"])]
+    if len(samples) < SERVE_SAMPLE:
+        raise AssertionError(f"path G {label}: {len(samples)} sampled responses, "
+                             f"{SERVE_SAMPLE} needed")
+    return samples[:SERVE_SAMPLE]
+
+
+def check_served(label, samples, want_ids, want_vals) -> None:
+    """Served ids and scores against ``query_batch_arrays`` on the same
+    block: tie-aware (where an id differs, the scores at that rank agree
+    within ``SERVE_ATOL``), scores within ``SERVE_ATOL``, no id twice."""
+    got_ids = np.stack([s[2] for s in samples])
+    got_vals = np.stack([s[3] for s in samples])
+    if got_ids.shape != want_ids.shape:
+        raise AssertionError(f"path G {label}: served {got_ids.shape}, engine {want_ids.shape}")
+    err = float(np.abs(got_vals - want_vals).max())
+    if not np.isfinite(got_vals).all() or err > SERVE_ATOL:
+        raise AssertionError(f"path G {label}: served scores off the engine's by {err:.3g}")
+    srt = np.sort(got_ids, axis=1)
+    if (srt[:, 1:] == srt[:, :-1]).any():
+        raise AssertionError(f"path G {label}: a response holds an id twice")
+    swaps = int((got_ids != want_ids).sum())
+    log(f"path G {label}: {len(samples)} sampled responses tie-aware equal to "
+        f"query_batch_arrays on the same block ({swaps} tied swaps, score err {err:.3g})")
+
+
+def check_endpoints(label, port) -> dict:
+    from hyperdb_tpu_torch.client import HyperDBClient
+
+    with HyperDBClient("127.0.0.1", port, timeout=60) as c:
+        if c.healthz() != {"ok": True}:
+            raise AssertionError(f"path G {label}: /healthz")
+        st = c.stats()
+    if st.get("documents", 0) <= 0:
+        raise AssertionError(f"path G {label}: /stats {st}")
+    return st
+
+
+def vector_samples_block(samples, payloads, f16: bool) -> np.ndarray:
+    block = np.stack([payloads[k][i] for k, i, _, _ in samples])
+    return block.astype(np.float16) if f16 else block
+
+
+def path_serving(db, corpus, kernels, seed: int, card: str) -> None:
+    """Path G1, G2 and G4 over the main path's DB: the native front end at
+    max_batch 1024 and at the CLI default 256, the stdlib front end, and
+    the CLI as subprocesses."""
+    from hyperdb_tpu_torch.native.server import NativeQueryServer
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.server import make_server
+
+    work = serve_dir()
+    try:
+        payloads = [make_queries(seed + 200 + k, 4096, corpus, plant=k == 0)
+                    for k in range(SERVE_CLIENTS)]
+        # G1: binary vectors through the native front end
+        for max_batch in (1024, 256):
+            label = f"G1 native binary max_batch={max_batch}"
+            srv = NativeQueryServer(db, port=0, max_batch=max_batch, window_ms=SERVE_WINDOW_MS)
+            try:
+                if not srv.wire_f16:
+                    raise AssertionError("path G1: a float16 DB must take the float16 wire")
+                check_endpoints(label, srv.port)
+                zero_launches(G)
+                samples = serve_phase(label, srv.port, "binary", payloads, SERVE_CONNS, 32, work,
+                                      card, lambda: native_stats(srv),
+                                      lambda: setattr(srv, "max_flush", 0))
+                launches = dict(G.LAUNCHES)
+                st = check_endpoints(label, srv.port)
+                with srv.lock:
+                    want = db.query_batch_arrays(vector_samples_block(samples, payloads, True),
+                                                 top_k=TOP_K)
+            finally:
+                srv.close()
+            log(f"path G {label}: launches {json.dumps(launches)}; /stats native "
+                f"{json.dumps(st['native'])}")
+            if max_batch == 1024:
+                if launches["gmax_f_sub"] < 1:
+                    raise AssertionError("path G1: served traffic at max_batch=1024 did not "
+                                         "launch gmax_f_sub")
+                check_variant(G, "path G1")
+                kernels["gmax_f_sub"]["launches"] += launches["gmax_f_sub"]
+            check_served(label, samples, *want)
+
+        # the engine alone at flush sizes on both sides of the kernel's threshold
+        # (a block of 257-511 pads to 512, HYPERDB_BATCH_BUCKET)
+        for b in (256, 512, 1024):
+            q16 = payloads[0][:b].astype(np.float16)
+            ms = wall_ms(lambda: db.query_batch_arrays(q16, top_k=TOP_K), 5)
+            log(f"path G1 engine alone (query_batch_arrays on a float16 block, no server): "
+                f"b={b} ms/batch={ms:.3f} [{card}]")
+
+        # G2: JSON vectors through the stdlib front end and its batcher
+        label = "G2 stdlib json max_batch=64"
+        httpd = make_server(db, port=0, dynamic_batch_ms=SERVE_WINDOW_MS, max_batch=64)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        spy = FlushSpy(db)
+        try:
+            check_endpoints(label, httpd.server_address[1])
+            samples = serve_phase(label, httpd.server_address[1], "json",
+                                  [p[:1024] for p in payloads], SERVE_CONNS, 1, work, card,
+                                  spy.stats, lambda: setattr(spy, "max_flush", 0))
+            check_endpoints(label, httpd.server_address[1])
+        finally:
+            spy.remove()
+            httpd.shutdown()
+            httpd.batcher.close()
+            httpd.server_close()
+            th.join(timeout=30)
+        check_served(label, samples, *db.query_batch_arrays(
+            vector_samples_block(samples, payloads, True), top_k=TOP_K))
+
+        # G4: the CLI, each command a process of its own on the card
+        t = time.perf_counter()
+        db.save(str(work / "main.ckpt"), format="checkpoint")
+        log(f"path G4: the main path's DB saved as a checkpoint in {time.perf_counter() - t:.2f} s")
+        path_cli(work, seed, card)
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def start_cli(*argv):
+    """Start ``python -m hyperdb_tpu_torch <argv>`` (on the card)."""
+    proc = subprocess.Popen([sys.executable, "-m", "hyperdb_tpu_torch", *argv], cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, argv[0], time.perf_counter()
+
+
+def finish_cli(started, timeout: float = 600):
+    """Wait for a command of :func:`start_cli`: (stdout, wall s); raises
+    with its error output if it failed."""
+    proc, name, t = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        raise AssertionError(f"path G4: `{name}` exited {proc.returncode}:\n{err[-3000:]}")
+    return out, time.perf_counter() - t
+
+
+def run_cli(*argv):
+    return finish_cli(start_cli(*argv))
+
+
+def path_cli(work, seed: int, card: str) -> None:
+    """G4: ``build`` of a 4096-document JSONL (default embedder, float16),
+    ``stats`` and ``query --text`` on its checkpoint (side by side), then
+    ``bench`` at b = 512 alone on the main path's checkpoint; each command's
+    wall seconds, process start and CUDA set-up included."""
+    words = vocab_words()
+    docs = text_documents(np.random.default_rng(seed + 210), words, G4_DOCS)
+    src, ckpt = work / "g4.jsonl", work / "g4.ckpt"
+    src.write_text("\n".join(json.dumps(d) for d in docs) + "\n")
+    _, wall = run_cli("build", "--input", str(src), "--output", str(ckpt),
+                      "--fp-precision", "float16")
+    log(f"path G4 CLI build: {G4_DOCS} documents in {wall:.2f} s wall [{card}]")
+    text = docs[7]["info"]["description"]
+    started = start_cli("stats", "--db", str(ckpt))
+    query = start_cli("query", "--db", str(ckpt), "--text", text, "-k", str(TOP_K))
+    try:
+        out, wall = finish_cli(started)
+        stats = json.loads(out)
+        if stats["documents"] != G4_DOCS or stats["dtype"] != "float16":
+            raise AssertionError(f"path G4: stats {stats}")
+        log(f"path G4 CLI stats: {wall:.2f} s wall, {json.dumps(stats)}")
+    except BaseException:
+        query[0].kill()  # stop every process this script started
+        query[0].wait()
+        raise
+    out, wall = finish_cli(query)
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    if len(rows) != TOP_K or rows[0]["index"] != 7:
+        raise AssertionError(f"path G4: query --text of document 7's description gave "
+                             f"{[r['index'] for r in rows]}")
+    log(f"path G4 CLI query --text: {wall:.2f} s wall, top-1 document 7 (score "
+        f"{rows[0]['score']})")
+    out, wall = run_cli("bench", "--db", str(work / "main.ckpt"), "--batch", "512",
+                        "--iters", "10", "-k", str(TOP_K))
+    bench = json.loads(out.strip().splitlines()[-1])
+    log(f"path G4 CLI bench --batch 512 --iters 10 on the main path's checkpoint: "
+        f"{wall:.2f} s wall, {json.dumps(bench)} [{card}]")
+
+
+def text_serve_phase(db, words, kernels, seed: int, card: str) -> None:
+    """G3: text/plain queries through the native front end over path E's
+    DB: one encoder pass per flush on the card (the port's C++ WordPiece
+    on the host), chained into the scan. The flushes' query blocks are
+    recorded, so each sampled response is held to ``query_batch_arrays``
+    on the block its text was embedded in."""
+    from hyperdb_tpu_torch.native.server import NativeQueryServer
+    from hyperdb_tpu_torch.native.tokenizer import NativeWordPiece
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.query import engine as E
+
+    enc, _ = E._default_embed_path(db)
+    if not isinstance(enc._tokenizer._native, NativeWordPiece):
+        raise AssertionError("path G3: the encoder's WordPiece did not take the C++ encoder")
+    rng = np.random.default_rng(seed + 220)
+    texts = list(dict.fromkeys(zipf_texts(rng, words, SERVE_CLIENTS * 16384, 8, 16)))
+    per = len(texts) // SERVE_CLIENTS
+    payloads = [texts[k * per:(k + 1) * per] for k in range(SERVE_CLIENTS)]
+    seen: dict[str, tuple[int, int]] = {}
+    blocks: list[torch.Tensor] = []
+    real = E.generate_query_vectors_batch_device
+
+    def recording(d, batch):
+        block = real(d, batch)
+        if block is not None:
+            for row, t in enumerate(batch):
+                seen.setdefault(t, (len(blocks), row))
+            blocks.append(block.clone())
+        return block
+
+    work = serve_dir()
+    label = "G3 native text max_batch=512"
+    srv = NativeQueryServer(db, port=0, max_batch=512, window_ms=SERVE_WINDOW_MS)
+    E.generate_query_vectors_batch_device = recording
+    try:
+        check_endpoints(label, srv.port)
+        zero_launches(G)
+        samples = serve_phase(label, srv.port, "text", payloads, SERVE_CONNS, 16, work, card,
+                              lambda: native_stats(srv), lambda: setattr(srv, "max_flush", 0),
+                              unique=True)
+        launches = dict(G.LAUNCHES)
+        st = check_endpoints(label, srv.port)
+    finally:
+        E.generate_query_vectors_batch_device = real
+        srv.close()
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"path G {label}: launches {json.dumps(launches)}; /stats native "
+        f"{json.dumps(st['native'])}; {len(blocks)} device blocks")
+    check_variant(G, "path G3")
+    kernels["gmax_f_sub"]["launches"] += launches["gmax_f_sub"]
+    rows = [seen[payloads[k][i]] for k, i, _, _ in samples]
+    block = torch.stack([blocks[f][r] for f, r in rows])
+    check_served(label, samples, *db.query_batch_arrays(block, top_k=TOP_K, n_valid=len(rows)))
+    del blocks
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2261,6 +2697,9 @@ def main() -> int:
 
     # 7. path A: int8 planes
     path_int8(docs, corpus, kernels, plane, args.seed, card)
+
+    # 13. path G1, G2, G4: serving and the CLI over the main path's DB
+    path_serving(db, corpus, kernels, args.seed, card)
     del db, dv, plane
     torch.cuda.empty_cache()
 

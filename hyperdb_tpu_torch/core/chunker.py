@@ -16,9 +16,9 @@ Tokenization is host work, behind the small :class:`Tokenizer` protocol:
 - :class:`HFTokenizer` — adapter for a HuggingFace fast tokenizer when its
   assets are available locally.
 
-The JAX package's native C++ word tokenizer (same semantics as
-:class:`WordTokenizer`) is not ported: :func:`default_tokenizer` goes
-straight to the pure-Python one.
+Without the WordPiece vocab (or with ``HYPERDB_CHUNK_TOKENIZER=word``)
+:func:`default_tokenizer` takes the C++ word tokenizer
+(``native/tokenizer.py``), which gives :class:`WordTokenizer`'s tokens.
 """
 
 from __future__ import annotations
@@ -182,7 +182,7 @@ def default_tokenizer() -> Tokenizer:
 
     Prefers subword (WordPiece) chunk boundaries over the in-repo vocab.
     Set ``HYPERDB_CHUNK_TOKENIZER=word`` to force whitespace-word counting;
-    without the vocab the whitespace-word tokenizer is used too.
+    without the vocab the whitespace-word tokenizer is used too, in C++.
     """
     if os.environ.get("HYPERDB_CHUNK_TOKENIZER", "wordpiece") == "wordpiece":
         if not _DEFAULT_WP_CHUNKER:
@@ -198,4 +198,6 @@ def default_tokenizer() -> Tokenizer:
                 _DEFAULT_WP_CHUNKER.append(WordPieceChunkTokenizer(wp))
         if _DEFAULT_WP_CHUNKER[0] is not None:
             return _DEFAULT_WP_CHUNKER[0]
-    return WordTokenizer()
+    from hyperdb_tpu_torch.native.tokenizer import NativeWordTokenizer
+
+    return NativeWordTokenizer()

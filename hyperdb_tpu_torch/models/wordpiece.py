@@ -2,9 +2,10 @@
 
 Counterpart of ``hyperdb_tpu/models/wordpiece.py``: BERT's greedy
 longest-match-first encoding over a fixed vocabulary (the shipped one is
-``hyperdb_tpu/models/assets/vocab.txt``). The JAX package hands ASCII texts
-to a C++ encoder when its shared library is built and gives the same ids
-either way; this module is that package's pure-Python path.
+``hyperdb_tpu/models/assets/vocab.txt``). ASCII text without the
+``_CTRL_WS`` control characters is encoded by the port's C++ WordPiece
+(``native/tokenizer.py``), every other text in Python, under the JAX
+package's rule; both give the same ids.
 
 The tokenizer implements both interfaces the engine needs:
 - model interface: ``encode(text, max_len) -> (ids, attention_mask)`` with
@@ -45,6 +46,14 @@ class WordPieceTokenizer:
         self.sep_id = self.token_to_id[SEP]
         self._max_piece = max((len(t) for t in self.vocab), default=1)
         self._word_cache: dict[str, tuple[list[int], list[tuple[int, int]]]] = {}
+        self._native = None  # the C++ encoder, built at the first ASCII text
+
+    def _native_encoder(self):
+        if self._native is None:
+            from hyperdb_tpu_torch.native.tokenizer import NativeWordPiece
+
+            self._native = NativeWordPiece(self.vocab, self.unk_id)
+        return self._native
 
     # ---------------------------------------------------------------- io
 
@@ -100,7 +109,17 @@ class WordPieceTokenizer:
             self._word_cache[word] = result
         return result
 
+    # ASCII control characters that Python's Unicode \s treats as
+    # whitespace and the C++ tokenizer does not: text holding one takes the
+    # Python path, so both paths give the same ids.
+    _CTRL_WS = "\x1c\x1d\x1e\x1f"
+
     def text_ids(self, text: str) -> list[int]:
+        if text.isascii() and not any(c in text for c in self._CTRL_WS):
+            return self._native_encoder().encode_ids(text)
+        return self._python_text_ids(text)
+
+    def _python_text_ids(self, text: str) -> list[int]:
         out: list[int] = []
         for word in pretokenize(text):
             out.extend(self.word_ids(word))

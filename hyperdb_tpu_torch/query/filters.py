@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from hyperdb_tpu_torch.core.nested import get_nested_value, validate_keys
+from hyperdb_tpu_torch.native.tokenizer import native_filter_tokenize
 
 FILTER_NAMES = ("key", "metadata", "sentence", "skip_doc")
 
@@ -39,7 +40,15 @@ _MISSING = object()
 
 
 def tokenize(text: str) -> set[str]:
-    """Punctuation-stripped lowercase word set (reference hyperdb.py:1136-1141)."""
+    """Punctuation-stripped lowercase word set (reference hyperdb.py:1136-1141).
+
+    ASCII text goes to the C++ tokenizer (the sentence filter is a host-side
+    loop over every document); other text to the Unicode-aware Python one,
+    which gives the same set on ASCII.
+    """
+    out = native_filter_tokenize(text)
+    if out is not None:
+        return out
     return set(_WORD_RE.findall(text.translate(_PUNCT_TABLE).lower()))
 
 

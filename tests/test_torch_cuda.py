@@ -795,3 +795,45 @@ def test_projscan_db_on_card_matches_cpu(dev, monkeypatch):
     np.testing.assert_array_equal(gi, pi)
     np.testing.assert_array_equal(gv, pv)
     assert G.LAUNCHES["gmax_int8"] == before + 1  # the CPU ran the plain version
+
+
+@pytest.mark.parametrize("front", ["native", "stdlib"])
+def test_server_on_card_answers_exactly(dev, front):
+    """A front end over a float16 DB on the card answers a binary query with
+    the ids and scores of ``query_batch_arrays`` on the same float16 wire
+    block, bit for bit; the native worker thread runs on the DB's card."""
+    import threading
+
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.client import HyperDBClient
+    from hyperdb_tpu_torch.native.server import NativeQueryServer
+    from hyperdb_tpu_torch.server import make_server
+
+    rng = np.random.default_rng(12)
+    v = rng.standard_normal((8192, 384)).astype(np.float16)
+    q = rng.standard_normal(384).astype(np.float32)
+    db = HyperDB([{"i": i} for i in range(8192)], v, fp_precision="float16", device="cuda")
+    assert db.device == torch.device("cuda", torch.cuda.current_device())
+    want_ids, want_vals = db.query_batch_arrays(q[None, :].astype(np.float16), top_k=10)
+    if front == "native":
+        srv = NativeQueryServer(db, port=0)
+        port, stop = srv.port, srv.close
+        assert srv.wire_f16
+    else:
+        httpd = make_server(db, port=0, dynamic_batch_ms=2.0)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        port = httpd.server_address[1]
+
+        def stop():
+            httpd.shutdown()
+            httpd.batcher.close()
+            httpd.server_close()
+            th.join(timeout=30)
+    try:
+        with HyperDBClient("127.0.0.1", port, timeout=60) as c:
+            ids, vals = c.query(q, top_k=10)
+    finally:
+        stop()
+    np.testing.assert_array_equal(ids, want_ids[0])
+    np.testing.assert_array_equal(vals, want_vals[0])

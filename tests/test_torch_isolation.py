@@ -343,3 +343,41 @@ def test_projscan_stage_a_raises_without_kernel(no_kernel_library, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         index.search(q, v8, scales, k=16, overfetch=256)
     assert G.LAUNCHES == before
+
+
+def test_native_host_library_is_the_ports_own(tmp_path):
+    """The port builds its C++ host library from its own sources into
+    ``build/hyperdb_tpu_torch/`` and never maps the JAX package's
+    ``hyperdb_tpu/native/libhyperdb_host.so``: a process that runs every
+    native path of the port (both servers, the client, the three tokenizer
+    call sites, the merge) holds only the port's library, and no module of
+    the JAX package."""
+    script = (
+        "import sys, numpy as np\n"
+        "from hyperdb_tpu_torch import HyperDB\n"
+        "from hyperdb_tpu_torch.client import HyperDBClient\n"
+        "from hyperdb_tpu_torch.core.chunker import default_tokenizer\n"
+        "from hyperdb_tpu_torch.models.minilm import ASSETS_DIR\n"
+        "from hyperdb_tpu_torch.models.wordpiece import WordPieceTokenizer\n"
+        "from hyperdb_tpu_torch.native import tokenizer as T\n"
+        "from hyperdb_tpu_torch.native.server import NativeQueryServer\n"
+        "from hyperdb_tpu_torch.query.filters import tokenize\n"
+        "import hyperdb_tpu_torch.__main__, hyperdb_tpu_torch.server\n"
+        "assert WordPieceTokenizer.load(ASSETS_DIR + '/vocab.txt').text_ids('a b') \n"
+        "assert tokenize('Some Words') == {'some', 'words'}\n"
+        "assert default_tokenizer().encode('x y') == ['x', 'y']\n"
+        "T.native_merge_topk(np.ones(4, np.float32), np.arange(4), 2)\n"
+        "v = np.eye(8, dtype=np.float32)\n"
+        "db = HyperDB(documents=[{'i': i} for i in range(8)], vectors=v, device='cpu')\n"
+        "with NativeQueryServer(db, port=0) as srv, HyperDBClient('127.0.0.1', srv.port) as c:\n"
+        "    assert c.query(v[3], top_k=1)[0][0] == 3\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "libs = {l.split()[-1] for l in maps.splitlines() if 'libhyperdb_host' in l}\n"
+        "assert libs == {str(T.library_path())}, libs\n"
+        "assert '/build/hyperdb_tpu_torch/' in T.library_path().as_posix()\n"
+        "assert not any('hyperdb_tpu/native' in p for p in libs)\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "assert not loaded, loaded\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), HYPERDB_CHUNK_TOKENIZER="word")
+    subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env, check=True, timeout=300)

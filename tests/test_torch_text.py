@@ -109,7 +109,12 @@ def test_chunking_errors_and_default_tokenizer(monkeypatch):
     assert type(TC.default_tokenizer()).__name__ == type(JC.default_tokenizer()).__name__
     assert isinstance(TC.default_tokenizer(), TC.WordPieceChunkTokenizer)
     monkeypatch.setenv("HYPERDB_CHUNK_TOKENIZER", "word")
-    assert isinstance(TC.default_tokenizer(), TC.WordTokenizer)
+    # word mode takes the C++ word tokenizer in both packages, with
+    # WordTokenizer's tokens
+    word = TC.default_tokenizer()
+    assert type(word).__name__ == type(JC.default_tokenizer()).__name__ == "NativeWordTokenizer"
+    assert word.encode(TEXTS["ascii"]) == TC.WordTokenizer().encode(TEXTS["ascii"])
+    assert word.encode(TEXTS["unicode"]) == TC.WordTokenizer().encode(TEXTS["unicode"])
     assert TC.document_text({"a": 1, "b": {"c": "d"}}) == JC.document_text({"a": 1, "b": {"c": "d"}})
 
 
