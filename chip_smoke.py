@@ -97,7 +97,9 @@ Phases, one or a few lines each on standard output:
 12. path F, the two indexes (run after path A): a seeded 1M x 384 float16
    corpus with a decaying spectrum (``make_spectral_corpus``; its top 128
    directions must keep at least 0.6 of the variance). F1: a float16 DB
-   with IVF (nlist 2000) through ``query`` (b = 1: the pre-filter and the
+   with IVF (nlist 2000), its build's f64 assignment and exact centroid
+   sums timed beside f32 forms of the same steps, through ``query`` (b = 1:
+   the pre-filter and the
    gathered scan) and ``query_batch_arrays`` at b = 64 and 512 (the shared
    probe frontier), each answer held tie-aware to an exact f32 scan over
    the rows the same index probed, recall@10 against the full exact scan
@@ -134,6 +136,36 @@ Phases, one or a few lines each on standard output:
    each a process of its own on the card. Path E also times the encoder's
    host tokenisation of 512 texts with the C++ WordPiece against the
    Python path (ids equal).
+14. path H, multi-device, over the main path's DB (H1 before path G, H3 and
+   H2 after it, H4 last). H1: ``ShardedHyperDB`` over meshes of 1 and 4
+   shards on the card (n_local 2^20 and 250112): cosine at b = 512 and 16384
+   (``gmax_f_sub`` on every shard), 512 with ``pallas_subgroup = 0``
+   (``gmax_f``), manhattan b = 64 under ``pallas_l1t`` = 1 and 0
+   (``gmax_l1t``, ``gmax_l1``), euclidean and jaccard b = 512 (the plain
+   per-shard route), cosine b = 512 with recency and with a metadata
+   filter, at 4 shards also cosine b = 512 at the default
+   ``grouped_topk_min_rows`` (the other 4-shard cells lower it, since
+   250112-row shards fall under it; at the default every shard takes the
+   plain scan, timed and held to the exact reference), and ``int8-pure``
+   at b = 1024 and 4096 (``gmax_int8`` on every
+   shard where the route's epilogue budget sends it there: b = 1024 on one
+   shard, 4096 on four). Launches are counted per shard (``ShardSpy``) and
+   the expected kernel must run once on every shard, a plain route on none;
+   every answer is held tie-aware to an exact reference and, where the
+   single-device route computes the same formula, to the single-device
+   answer on the same block (euclidean's differs by the grouped route's
+   bf16 query and is reported); ms/batch beside the single-device time.
+   H2: a 4-shard DB with reserved capacity: add 4096 rows, remove 1000
+   documents, compact, each held to a HyperDB rebuilt from the same
+   documents; ``from_checkpoint`` of a sharded checkpoint of the DB
+   (``load_sharded_vectors``). H3: the native front end over the 1-shard
+   DB with G1's traffic at ``max_batch`` 1024 for 3 s. H4: the launchers
+   ``tools/multihost_serve_dryrun.py`` (two ranks on the card over gloo,
+   each with half of a 1M x 384 corpus: the array surface at b = 512, and
+   the document surface's 11 checks over 20000 documents of 1-3 rows, a
+   relayed refill and plane reuse; world size 1 at the launcher's defaults,
+   the card over nccl) and ``tools/multihost_fault_dryrun.py`` (a hung
+   follower must raise on the leader within its 5 s deadline).
 
 Then a JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
@@ -206,6 +238,9 @@ SERVE_WINDOW_MS = 2.0
 SERVE_SAMPLE = 512
 SERVE_ATOL = ATOL
 G4_DOCS = 4096  # path G4: documents of the CLI's build
+H3_SECONDS = 3.0  # path H3: the measured window of the sharded serving phase
+H1_SHARD_MIN_ROWS = 1 << 17  # path H1: grouped_topk_min_rows for shards of 250112 rows
+H4_DOCS2 = 20_000  # path H4: documents (1-3 rows each) behind the document surface
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOAD_TOOL = os.path.join(ROOT, "hyperdb_tpu_torch", "tools", "serve_load.py")
 NEG_INF = float("-inf")
@@ -1496,6 +1531,49 @@ def phase_index_files(db, q: np.ndarray, name: str, card: str, **make_kw) -> Non
         shutil.rmtree(out, ignore_errors=True)
 
 
+def ivf_build_cost(index, plane, card: str) -> None:
+    """F1: what the build's f64 assignment logits and exact fixed-point
+    centroid sums cost at this size, beside the same steps with f32 logits
+    and f32 ``index_add_`` sums (timed here only): one full assignment pass
+    over the N rows, one over the training sample, one centroid update."""
+    from hyperdb_tpu_torch.index import ivf as IVF
+
+    cent = torch.from_numpy(index.centroids).to(plane.device)
+    rows = plane[:N_DOCS]
+    train = rows[: IVF._TRAIN_SAMPLE].float()
+    assign = IVF._assign(train, cent)
+    half = 0.5 * (cent * cent).sum(1)
+    step = (1 << 28) // cent.shape[0]
+
+    def assign_f32(x):
+        return torch.cat([torch.argmax(x[a : a + step].float() @ cent.T - half, dim=1)
+                          for a in range(0, x.shape[0], step)])
+
+    def mean_f32():
+        sums = torch.zeros_like(cent).index_add_(0, assign, train)
+        counts = torch.zeros(cent.shape[0], device=cent.device).index_add_(
+            0, assign, torch.ones(train.shape[0], device=cent.device))
+        return sums / counts.clamp(min=1)[:, None]
+
+    ms = {
+        "full f64": cuda_ms(lambda: IVF._assign(rows, cent), reps=3, warmup=1),
+        "full f32": cuda_ms(lambda: assign_f32(rows), reps=3, warmup=1),
+        "sample f64": cuda_ms(lambda: IVF._assign(train, cent), reps=3, warmup=1),
+        "sample f32": cuda_ms(lambda: assign_f32(train), reps=3, warmup=1),
+        "sums exact": cuda_ms(lambda: IVF._segment_mean(train, assign, cent), reps=3, warmup=1),
+        "sums f32": cuda_ms(mean_f32, reps=3, warmup=1),
+    }
+    iters = IVF._KMEANS_ITERS
+    shipped = iters * (ms["sample f64"] + ms["sums exact"]) + ms["full f64"]
+    f32 = iters * (ms["sample f32"] + ms["sums f32"]) + ms["full f32"]
+    log(f"path F1 ivf build steps at {N_DOCS} x {DIM}, nlist {index.nlist}, sample "
+        f"{train.shape[0]} (device ms): full assignment pass f64 {ms['full f64']:.3f} (f32 "
+        f"{ms['full f32']:.3f}); sample pass f64 {ms['sample f64']:.3f} (f32 {ms['sample f32']:.3f}); "
+        f"centroid update exact {ms['sums exact']:.3f} (f32 index_add_ {ms['sums f32']:.3f}); "
+        f"{iters} iterations + the full pass {shipped:.1f} ms against {f32:.1f} [{card}]")
+    del cent, rows, train, assign
+
+
 def path_indexes(docs, kernels, seed: int, card: str) -> None:
     """Path F: the IVF and projscan indexes at 1M x 384 on the card."""
     from hyperdb_tpu_torch import HyperDB
@@ -1527,6 +1605,7 @@ def path_indexes(docs, kernels, seed: int, card: str) -> None:
     finally:
         DB.IVF_THRESHOLD = threshold
     plane = db._store.device_view(db.source_indices)["rows_norm"]
+    ivf_build_cost(db.ann_index, plane, card)
     try:
         path_ivf(db, corpus, extra, plane, seed, card)
         CONFIG.batch_ivf_min_rows = N_DOCS
@@ -2586,6 +2665,368 @@ def text_serve_phase(db, words, kernels, seed: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- path H
+
+
+class ShardSpy:
+    """Kernel launches per shard: wraps the per-shard functions of
+    ``parallel/distributed.py`` and takes the wrappers' counters (each adds
+    one where it launches its kernel) before and after every shard's call."""
+
+    def __init__(self, D, counters):
+        self.D, self.counters = D, counters
+        self.real = (D._local_top_k, D._local_top_k_int8)
+        self.per_shard = {}
+        D._local_top_k, D._local_top_k_int8 = (self._wrap(f) for f in self.real)
+
+    def _wrap(self, fn):
+        def run(shard, *args, **kw):
+            before = self._snapshot()
+            out = fn(shard, *args, **kw)
+            counts = self.per_shard.setdefault(shard, {})
+            for name, n in self._snapshot().items():
+                counts[name] = counts.get(name, 0) + n - before[name]
+            return out
+        return run
+
+    def _snapshot(self) -> dict:
+        return {name: n for c in self.counters for name, n in c.items()}
+
+    def reset(self) -> None:
+        self.per_shard = {}
+
+    def remove(self) -> None:
+        self.D._local_top_k, self.D._local_top_k_int8 = self.real
+
+
+def check_same_answers(name, ids, vals, want_ids, want_vals, atol) -> int:
+    """Tie-aware: scores within ``atol`` of the other answer's at every
+    rank; where an id differs, the two scores lie within ``atol``."""
+    if ids.shape != want_ids.shape:
+        raise AssertionError(f"{name}: answer shapes {ids.shape} and {want_ids.shape}")
+    err = float(np.abs(vals - want_vals).max())
+    if not np.isfinite(vals).all() or err > atol:
+        raise AssertionError(f"{name}: scores off the single-device answer by {err:.3g} > {atol}")
+    return int((ids != want_ids).sum())
+
+
+def masked_reference(plane, q, rec=None, mask=None) -> Reference:
+    """Exact cosine top-k over the bf16 plane (the unit query rounded to
+    bf16) with recency and a row mask folded into one additive term."""
+    qt = torch.from_numpy(q).cuda()
+    norm = torch.sqrt((qt * qt).sum(-1, keepdim=True))
+    qn = (qt / torch.where(norm == 0, torch.ones_like(norm), norm)).bfloat16()
+    add = torch.zeros(plane.shape[0], dtype=torch.float32, device=plane.device)
+    if rec is not None:
+        add = add + rec
+    if mask is not None:
+        add = add.masked_fill(~mask, NEG_INF)
+    return Reference(qn, plane, N_DOCS, TOP_K, rec=add)
+
+
+def path_sharded_scan(db, corpus, kernels, seed: int, card: str):
+    """Path H1: ``ShardedHyperDB`` over meshes of 1 and 4 shards on the
+    card, every cell against an exact reference and the single-device
+    answer on the same block; launches counted per shard. Returns the
+    1-shard DB for H3."""
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops import l1 as L
+    from hyperdb_tpu_torch.ops import quantized as Q
+    from hyperdb_tpu_torch.parallel import distributed as D
+    from hyperdb_tpu_torch.parallel.mesh import make_mesh
+    from hyperdb_tpu_torch.parallel.sharded_db import ShardedHyperDB
+
+    dv = db._store.device_view(db.source_indices)
+    plane, n_pad = dv["rows_norm"], dv["n_pad"]
+    q = {b: make_queries(seed + 300 + b % 97, b, corpus) for b in (64, 512, 1024, 4096, 16384)}
+    rec = recency_vector(n_pad)
+    ts_half = torch.from_numpy((np.arange(n_pad) % 1000 == 500) & (np.arange(n_pad) < N_DOCS)).cuda()
+    filt = [("metadata", {"ts": 0.5})]
+    int8_planes = {}
+
+    def int8_ref(sdb, qb):
+        key = id(sdb)
+        if key not in int8_planes:
+            int8_planes[key] = {"rowsn_q": torch.cat(sdb.rowsn_q.shards),
+                                "rown_scales": torch.cat(sdb.rown_scales.shards)}
+        return int8_reference(int8_planes[key], qb, TOP_K)
+
+    # (label, batch, query kwargs, CONFIG knobs, kernel expected on every
+    # shard or None, reference, tolerance, hold to the single-device answer)
+    cells = [
+        ("cosine b=512", 512, {}, {}, "gmax_f_sub", lambda b: cosine_reference(plane, N_DOCS, q[b], TOP_K), ATOL, True),
+        ("cosine b=16384", 16384, {}, {}, "gmax_f_sub",
+         lambda b: cosine_reference(plane, N_DOCS, q[b][:512], TOP_K), ATOL, True),
+        ("cosine b=512 pallas_subgroup=0", 512, {}, {"pallas_subgroup": 0}, "gmax_f",
+         lambda b: cosine_reference(plane, N_DOCS, q[b], TOP_K), ATOL, True),
+        ("manhattan b=64 pallas_l1t=1", 64, {"metric": "manhattan_distance"}, {"pallas_l1t": 1},
+         "gmax_l1t", lambda b: DocReference("manhattan", q[b], dv["rows"], N_DOCS, TOP_K), MANHATTAN_ATOL, True),
+        ("manhattan b=64 pallas_l1t=0", 64, {"metric": "manhattan_distance"}, {"pallas_l1t": 0},
+         "gmax_l1", lambda b: DocReference("manhattan", q[b], dv["rows"], N_DOCS, TOP_K), MANHATTAN_ATOL, True),
+        ("euclidean b=512", 512, {"metric": "euclidean_metric"}, {}, None,
+         lambda b: DocReference("euclidean", q[b], dv["rows"], N_DOCS, TOP_K), ATOL, False),
+        ("jaccard b=512", 512, {"metric": "jaccard_similarity"}, {}, None,
+         lambda b: metric_reference(db, "jaccard_similarity", q[b], TOP_K), METRIC_ATOL["jaccard_similarity"], True),
+        ("cosine b=512 recency", 512, {"recency_bias": RECENCY_BIAS, "timestamp_key": "ts"}, {}, "gmax_f_sub",
+         lambda b: masked_reference(plane, q[b], rec=rec), ATOL, True),
+        ("cosine b=512 metadata filter", 512, {"filters": filt}, {}, "gmax_f_sub",
+         lambda b: masked_reference(plane, q[b], mask=ts_half), ATOL, True),
+    ]
+    # int8-pure: gmax_int8 where the route's epilogue budget sends the shard
+    # (b * n_local * 4 bytes > 2 GB): b = 1024 on one shard; 4096 on four
+    int8_batches = {1: (1024,), 4: (1024, 4096)}
+    spy = ShardSpy(D, (G.LAUNCHES, L.LAUNCHES))
+    single = {}
+    sdb1 = None
+    try:
+        for n_shards in (1, 4):
+            t = time.perf_counter()
+            mesh = make_mesh(n_shards)
+            sdb = ShardedHyperDB(db, mesh)
+            sdb8 = ShardedHyperDB(db, mesh, precision="int8-pure")
+            torch.cuda.synchronize()
+            log(f"path H1 S={n_shards}: shards of {sdb.n_pad // n_shards} rows on "
+                f"{[str(d) for d in mesh.local_devices()]}, bf16 and int8-pure sets built in "
+                f"{time.perf_counter() - t:.1f} s")
+            shard_knobs = {}
+            if sdb.n_pad // n_shards < CONFIG.grouped_topk_min_rows:
+                # the JAX per-shard rule sends a shard under the grouped
+                # threshold to the plain (B, n_local) scan; the cells lower it
+                shard_knobs = {"grouped_topk_min_rows": H1_SHARD_MIN_ROWS}
+                log(f"path H1 S={n_shards}: n_local {sdb.n_pad // n_shards} < grouped_topk_min_rows "
+                    f"{CONFIG.grouped_topk_min_rows}, which sends every shard to the plain route; "
+                    f"the cells below set it to {H1_SHARD_MIN_ROWS}")
+            extra_cells = []
+            if shard_knobs:
+                # the default threshold too: every shard on the plain (b, n_local) scan
+                extra_cells = [("cosine b=512 default grouped_topk_min_rows (plain shards)", 512, {},
+                                {"grouped_topk_min_rows": CONFIG.grouped_topk_min_rows}, None,
+                                lambda b: cosine_reference(plane, N_DOCS, q[b], TOP_K), ATOL, False)]
+            all_cells = [(c, sdb) for c in cells + extra_cells] + [
+                ((label, b, {}, {}, "gmax_int8" if b * (sdb8.n_pad // n_shards) * 4 > Q._EPILOGUE_BUDGET_BYTES
+                  else None, None, INT8_ATOL, False), sdb8)
+                for label, b in ((f"int8-pure b={b}", b) for b in int8_batches[n_shards])
+            ]
+            for (label, b, kw, knobs, kernel, make_ref, atol, hold), target in all_cells:
+                knobs = {**shard_knobs, **knobs}
+                saved = {k: getattr(CONFIG, k) for k in knobs}
+                for k, v in knobs.items():
+                    setattr(CONFIG, k, v)
+                try:
+                    zero_launches(G)
+                    zero_launches(L)
+                    spy.reset()
+                    ids, vals = target.query_batch_arrays(q[b], top_k=TOP_K, **kw)
+                    per_shard = {s: {k: v for k, v in c.items() if v} for s, c in sorted(spy.per_shard.items())}
+                    if kernel is not None:
+                        if len(per_shard) != n_shards or any(c.get(kernel, 0) != 1 for c in per_shard.values()):
+                            raise AssertionError(f"path H1 S={n_shards} {label}: {kernel} not launched once "
+                                                 f"on every shard: {per_shard}")
+                        kernels[kernel]["launches"] += n_shards
+                        if kernel.startswith("gmax_f") or kernel == "gmax_int8":
+                            check_variant(G, f"path H1 {label}")
+                    elif any(per_shard.values()):
+                        raise AssertionError(f"path H1 S={n_shards} {label}: a plain route launched {per_shard}")
+                    ref = make_ref(b) if make_ref is not None else int8_ref(sdb8, q[b][:512])
+                    n_ref = min(b, 512)
+                    swaps, err = check_top_k(f"H1 S={n_shards} {label}", ids[:n_ref], vals[:n_ref], ref, atol)
+                    del ref
+                    key = (label, b)
+                    if key not in single:
+                        wi, wv = db.query_batch_arrays(q[b], top_k=TOP_K, **kw) if target is sdb else (None, None)
+                        single[key] = (wi, wv, run_batch(db, q[b], f"path H1 single-device {label}", card, **kw)
+                                       if target is sdb else None)
+                    wi, wv, single_ms = single[key]
+                    note = ""
+                    if wi is not None:
+                        d_ids = int((ids != wi).sum())
+                        d_err = float(np.abs(vals - wv).max())
+                        if hold:
+                            check_same_answers(f"H1 S={n_shards} {label}", ids, vals, wi, wv, atol)
+                            note = f"; tie-aware equal to the single-device answer ({d_ids} tied swaps)"
+                        else:
+                            note = (f"; against the single-device answer: {d_ids} ids differ, scores "
+                                    f"within {d_err:.3g}")
+                    ms = run_batch(target, q[b], f"path H1 S={n_shards} {label}", card, **kw)
+                    log(f"path H1 S={n_shards} {label}: per-shard launches {json.dumps(per_shard)}; ids "
+                        f"tie-aware equal to the exact reference ({swaps} tied swaps, score err {err:.3g}, "
+                        f"tol {atol}){note}; ms/batch {ms:.3f} sharded against "
+                        f"{'path A' if single_ms is None else f'{single_ms:.3f}'} single-device [{card}]")
+                finally:
+                    for k, v in saved.items():
+                        setattr(CONFIG, k, v)
+            del sdb8
+            int8_planes.clear()
+            if n_shards == 1:
+                sdb1 = sdb
+            else:
+                del sdb
+            torch.cuda.empty_cache()
+    finally:
+        spy.remove()
+    return sdb1
+
+
+def path_sharded_serving(sdb, db, corpus, seed: int, card: str) -> None:
+    """Path H3: ``serve --sharded``'s shape: the native front end over the
+    1-shard ShardedHyperDB with G1's traffic at max_batch 1024, a shorter
+    window; 512 served answers held to its ``query_batch_arrays``."""
+    global SERVE_SECONDS
+    from hyperdb_tpu_torch.native.server import NativeQueryServer
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    work = serve_dir()
+    seconds = SERVE_SECONDS
+    SERVE_SECONDS = H3_SECONDS
+    try:
+        payloads = [make_queries(seed + 200 + k, 4096, corpus, plant=k == 0)
+                    for k in range(SERVE_CLIENTS)]
+        label = "H3 native binary sharded S=1 max_batch=1024"
+        srv = NativeQueryServer(sdb, port=0, max_batch=1024, window_ms=SERVE_WINDOW_MS)
+        try:
+            if not srv.wire_f16:
+                raise AssertionError("path H3: a float16 DB must take the float16 wire")
+            st = check_endpoints(label, srv.port)
+            if st.get("sharded") is not True:
+                raise AssertionError(f"path H3: /stats does not say sharded: {st}")
+            zero_launches(G)
+            samples = serve_phase(label, srv.port, "binary", payloads, SERVE_CONNS, 32, work, card,
+                                  lambda: native_stats(srv), lambda: setattr(srv, "max_flush", 0))
+            launches = dict(G.LAUNCHES)
+            check_endpoints(label, srv.port)
+            with srv.lock:
+                want = sdb.query_batch_arrays(vector_samples_block(samples, payloads, True), top_k=TOP_K)
+        finally:
+            srv.close()
+        log(f"path {label}: launches {json.dumps(launches)}")
+        if launches["gmax_f_sub"] < 1:
+            raise AssertionError("path H3: served traffic did not launch gmax_f_sub")
+        check_served(label, samples, *want)
+    finally:
+        SERVE_SECONDS = seconds
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def path_sharded_lifecycle(db, corpus, seed: int, card: str) -> None:
+    """Path H2 (it mutates the main path's DB, so it runs after path G):
+    a 4-shard ShardedHyperDB with reserved capacity; add 4096 rows,
+    remove 1000 documents, compact, each held at b = 512 to a HyperDB
+    rebuilt from the same documents; then ``from_checkpoint`` through
+    ``load_sharded_vectors`` from a sharded checkpoint of the DB as it was."""
+    import shutil
+    from pathlib import Path
+
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.parallel.mesh import make_mesh
+    from hyperdb_tpu_torch.parallel.sharded_db import ShardedHyperDB
+
+    work = Path(ROOT) / "build" / "smoke_sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rng = np.random.default_rng(seed + 330)
+    q = make_queries(seed + 331, 512, corpus)
+    mesh = make_mesh(4)
+    try:
+        t = time.perf_counter()
+        db.save(str(work / "ckpt"), format="checkpoint", rows_per_shard=1 << 18)
+        log(f"path H2: sharded checkpoint of the main DB saved in {time.perf_counter() - t:.2f} s")
+        want_i, want_v = db.query_batch_arrays(q, top_k=TOP_K)
+        t = time.perf_counter()
+        sdb = ShardedHyperDB(db, mesh, capacity_rows=N_DOCS + 8192)
+        torch.cuda.synchronize()
+        log(f"path H2: 4-shard set with capacity {sdb.n_pad} rows built in "
+            f"{time.perf_counter() - t:.2f} s")
+
+        def against_rebuilt(step: str, seconds: float) -> None:
+            t0 = time.perf_counter()
+            fresh = HyperDB.from_state({
+                "vectors": db.vectors, "documents": db.documents,
+                "source_indices": db.source_indices, "metadata_keys": ["ts"],
+                "fp_precision": np.float16, "ann_metric": "cosine",
+            })
+            wi, wv = fresh.query_batch_arrays(q, top_k=TOP_K)
+            rebuild_s = time.perf_counter() - t0
+            gi, gv = sdb.query_batch_arrays(q, top_k=TOP_K)
+            swaps = check_same_answers(f"H2 {step}", gi, gv, wi, wv, ATOL)
+            log(f"path H2 {step}: {seconds:.3f} s; b=512 answers tie-aware equal to a HyperDB "
+                f"rebuilt from the same documents ({swaps} tied swaps; the rebuild and its first "
+                f"batch {rebuild_s:.2f} s); {sdb.n} rows, {sdb.tombstoned_rows} tombstoned, "
+                f"{sdb.capacity_remaining} free [{card}]")
+
+        new_rows = rng.standard_normal((4096, DIM), dtype=np.float32).astype(np.float16)
+        t = time.perf_counter()
+        sdb.add([{"ts": 0.999} for _ in range(4096)], vectors=new_rows)
+        torch.cuda.synchronize()
+        against_rebuilt("add of 4096 rows into reserved capacity", time.perf_counter() - t)
+        victims = np.sort(rng.choice(len(db.documents), size=1000, replace=False)).tolist()
+        t = time.perf_counter()
+        sdb.remove_document(victims)
+        against_rebuilt("remove_document of 1000 documents", time.perf_counter() - t)
+        t = time.perf_counter()
+        sdb.compact()
+        torch.cuda.synchronize()
+        against_rebuilt("compact", time.perf_counter() - t)
+        del sdb
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        sck = ShardedHyperDB.from_checkpoint(str(work / "ckpt"), mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        if sck.n != N_DOCS or sck.rows.dtype != torch.bfloat16:
+            raise AssertionError(f"path H2 from_checkpoint: {sck.n} rows of {sck.rows.dtype}")
+        gi, gv = sck.query_batch_arrays(q, top_k=TOP_K)
+        swaps, err = check_ids("H2 from_checkpoint", gi, gv, torch.cat(sck.rows_norm.shards), N_DOCS, q, TOP_K)
+        same = float((gi == want_i).mean())
+        log(f"path H2 from_checkpoint through load_sharded_vectors: {load_s:.2f} s for {N_DOCS} rows "
+            f"in 4 shards; b=512 ids tie-aware equal to the exact reference over its own plane "
+            f"({swaps} tied swaps, score err {err:.3g}); {same:.4f} of the ids equal the host-built "
+            f"DB's (its bf16 rows are normalized on the card, the host's f16 rows on the host), "
+            f"scores within {float(np.abs(gv - want_v).max()):.3g} [{card}]")
+        del sck
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def path_multiprocess(card: str) -> None:
+    """Path H4: the multi-process launchers on the card, each rank a process
+    of its own: two ranks sharing the one card over gloo, each holding half
+    of a 1M x 384 corpus; world size 1 over nccl; the hung follower."""
+    tools = os.path.join(ROOT, "hyperdb_tpu_torch", "tools")
+    runs = [
+        ("2 ranks, gloo, 1M x 384", "multihost_serve_dryrun.py",
+         ["--device", "cuda", "--procs", "2", "--local-shards", "1", "--backend", "gloo", "--rows", str(N_DOCS),
+          "--dim", str(DIM), "--batch", "512", "-k", str(TOP_K), "--docs2", str(H4_DOCS2),
+          "--atol", str(ATOL), "--timeout", "400"],
+         "MULTIHOST SERVE DRYRUN: OK (launcher)"),
+        # no --device, no --backend: the launcher's defaults, the card over nccl
+        ("world size 1, nccl", "multihost_serve_dryrun.py",
+         ["--procs", "1", "--local-shards", "2", "--timeout", "200"],
+         "MULTIHOST SERVE DRYRUN: OK (launcher)"),
+        ("hung follower, gloo", "multihost_fault_dryrun.py",
+         ["--device", "cuda", "--procs", "2", "--local-shards", "1", "--backend", "gloo", "--ack-timeout", "5",
+          "--raise-deadline", "30", "--timeout", "200"],
+         "MULTIHOST FAULT DRYRUN: OK (launcher)"),
+    ]
+    for label, script, argv, ok in runs:
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, os.path.join(tools, script), *argv],
+                             capture_output=True, text=True, timeout=480, cwd=ROOT)
+        dt = time.perf_counter() - t
+        keep = [line for line in out.stdout.splitlines()
+                if any(w in line for w in ("ms", "OK", "raised", "rc=", "set-up", "total"))]
+        for line in keep[-30:]:
+            log(f"path H4 {label}: {line.strip()}")
+        if out.returncode != 0 or ok not in out.stdout:
+            raise AssertionError(f"path H4 {label}: exit {out.returncode}\n{out.stdout[-3000:]}"
+                                 f"\n{out.stderr[-2000:]}")
+        log(f"path H4 {label}: passed in {dt:.1f} s [{card}]")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2698,8 +3139,21 @@ def main() -> int:
     # 7. path A: int8 planes
     path_int8(docs, corpus, kernels, plane, args.seed, card)
 
+    # 14. path H1: the sharded exact scan over 1 and 4 shards of the same DB
+    t = time.perf_counter()
+    sdb1 = path_sharded_scan(db, corpus, kernels, args.seed, card)
+    log(f"path H1: {time.perf_counter() - t:.1f} s")
+
     # 13. path G1, G2, G4: serving and the CLI over the main path's DB
     path_serving(db, corpus, kernels, args.seed, card)
+
+    # 14. path H3 (serving the 1-shard DB), then H2 (which mutates the DB)
+    t = time.perf_counter()
+    path_sharded_serving(sdb1, db, corpus, args.seed, card)
+    del sdb1
+    torch.cuda.empty_cache()
+    path_sharded_lifecycle(db, corpus, args.seed, card)
+    log(f"path H2-H3: {time.perf_counter() - t:.1f} s")
     del db, dv, plane
     torch.cuda.empty_cache()
 
@@ -2712,6 +3166,11 @@ def main() -> int:
 
     # 11. path E: text and persistence
     path_text(kernels, args.seed, card)
+
+    # 14. path H4: the multi-process launchers
+    t = time.perf_counter()
+    path_multiprocess(card)
+    log(f"path H4: {time.perf_counter() - t:.1f} s")
 
     names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard", "gmax_l1", "gmax_l1t")
     for name in names:

@@ -134,11 +134,6 @@ def cmd_bench(args):
 def cmd_serve(args):
     from hyperdb_tpu_torch.server import serve
 
-    if args.sharded:
-        raise SystemExit(
-            "serve --sharded is not ported yet: it needs the multi-device "
-            "package (ROADMAP.md queue 1, item 12)"
-        )
     db = _load_db(args.db, args.device,
                   args.metadata_keys.split(",") if args.metadata_keys else None)
     if args.warmup:
@@ -160,6 +155,12 @@ def cmd_serve(args):
         db.warmup(top_ks=(5, 10), max_batch=args.max_batch,
                   metric=metrics,
                   text_max_batch=args.warmup_text or None)
+    if args.sharded:
+        from hyperdb_tpu_torch.parallel.mesh import make_mesh
+        from hyperdb_tpu_torch.parallel.sharded_db import ShardedHyperDB
+
+        # one shard per card of the db's device type (the CPU: one shard)
+        db = ShardedHyperDB(db, make_mesh(device=db.device.type))
     if args.native:
         from hyperdb_tpu_torch.native.server import NativeQueryServer
 
@@ -249,8 +250,7 @@ def main(argv=None):
                         "flush buckets up to N (0 = skip)")
     p.add_argument("--sharded", action="store_true",
                    help="row-shard the corpus over every attached device "
-                        "and serve the distributed path (not ported yet: "
-                        "ROADMAP.md queue 1, item 12)")
+                        "and serve the distributed path")
     p.add_argument("--dynamic-batch-ms", type=float, default=0.0,
                    help="coalesce concurrent identical vector queries for "
                         "this many ms into one device batch (0 = off)")

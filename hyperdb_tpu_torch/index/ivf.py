@@ -4,10 +4,18 @@ Counterpart of ``hyperdb_tpu/index/ivf.py``, with the same state, the same
 random draws and the same candidate contract:
 
 - build: Lloyd k-means on a row sample (assignment is ``argmax(x . c -
-  |c|^2 / 2)``, one matmul; the centroid update a sum over assigned rows,
-  ``index_add_`` here where the JAX package has ``segment_sum``), then one
-  full assignment pass. Rows are kept bucketed by cluster (CSR layout:
-  ``row_order`` + ``offsets``).
+  |c|^2 / 2)``, one matmul; the centroid update a sum over assigned rows),
+  then one full assignment pass. Rows are kept bucketed by cluster (CSR
+  layout: ``row_order`` + ``offsets``).
+- determinism: the build gives the same clusters on the card as on the CPU,
+  run after run. The centroid sums are exact integer sums of the rows in
+  fixed point (:func:`_segment_mean`), which no summation order can change,
+  where float atomics (``index_add_`` on the card) sum in another order on
+  every run; the assignment logits are f64 (:func:`_assign`), where the
+  products of f32 operands are exact and only the sums round, about 1e-16
+  relative, so the card and the CPU part only on a near-tie that close. The
+  JAX package sums in f32 (``segment_sum``): centroids agree with it within
+  1e-5.
 - query: rank the centroids against the query and walk clusters in that
   order until the candidate budget is covered (the reference's Q12 budget
   ``max(top_k * 20, ceil(N * ann_percent / 100))``); the engine rescores the
@@ -22,13 +30,19 @@ no kernel here: the work is matmuls, argmax and gathers.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 _TRAIN_SAMPLE = 131072
 _KMEANS_ITERS = 12
-# f32 logits per assignment chunk: bounds the (rows, nlist) temporary
-_ASSIGN_CELLS = 1 << 28
+# f64 logits per assignment chunk: bounds the (rows, nlist) temporary
+_ASSIGN_CELLS = 1 << 27
+# Fixed-point bits below the largest training magnitude: a value becomes an
+# integer of at most 2^40, so a sum of _TRAIN_SAMPLE (2^17) of them stays
+# under 2^57 and fits int64 exactly.
+_FIX_BITS = 40
 
 
 def default_nlist(n: int) -> int:
@@ -38,28 +52,47 @@ def default_nlist(n: int) -> int:
 
 def _assign(rows: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Nearest centroid of each row in L2: ``argmax(x . c - |c|^2 / 2)``,
-    ties to the lower cluster (as ``jnp.argmax``). Chunked over rows, which
-    changes no result."""
-    half_sq = 0.5 * torch.sum(centroids * centroids, dim=1)
-    step = max(1, _ASSIGN_CELLS // max(1, centroids.shape[0]))
+    ties to the lower cluster (as ``jnp.argmax``). The logits are f64: the
+    products of f32 operands are exact there, so the device's and the CPU's
+    matmuls differ only in how they round their sums (about 1e-16 relative)
+    and pick the same cluster short of a tie that close. Chunked over rows,
+    which changes no result."""
+    c = centroids.double()
+    half_sq = 0.5 * torch.sum(c * c, dim=1)
+    step = max(1, _ASSIGN_CELLS // max(1, c.shape[0]))
     parts = [
-        torch.argmax(rows[a : a + step].float() @ centroids.T - half_sq, dim=1)
+        torch.argmax(rows[a : a + step].double() @ c.T - half_sq, dim=1)
         for a in range(0, rows.shape[0], step)
     ]
     return torch.cat(parts)
 
 
-def _kmeans(train: torch.Tensor, init: torch.Tensor, nlist: int, iters: int) -> torch.Tensor:
+def _segment_mean(train: torch.Tensor, assign: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Mean of the rows assigned to each cluster; an empty cluster keeps its
+    ``prev`` centroid. The sums are exact: every value is scaled by a power
+    of two to an integer of at most 2^_FIX_BITS (values below 2^-_FIX_BITS
+    of the largest magnitude round to the nearest such step) and summed in
+    int64, which no order of addition changes, so ``index_add_``'s atomics
+    on the card give the CPU's sums bit for bit. The rest is elementwise
+    and correctly rounded on both."""
+    amax = float(train.abs().max()) if train.numel() else 0.0
+    if not math.isfinite(amax):
+        raise ValueError("IVF k-means needs finite rows")
+    scale = 2.0 ** (_FIX_BITS - math.frexp(amax)[1])  # amax < 2^frexp exponent
+    fixed = torch.round(train.double() * scale).long()
+    nlist = prev.shape[0]
+    sums = torch.zeros((nlist, train.shape[1]), dtype=torch.int64, device=train.device)
+    sums.index_add_(0, assign, fixed)
+    counts = torch.bincount(assign, minlength=nlist)
+    mean = (sums.double() / scale) / torch.clamp(counts, min=1).double()[:, None]
+    return torch.where((counts > 0)[:, None], mean.float(), prev)
+
+
+def _kmeans(train: torch.Tensor, init: torch.Tensor, iters: int) -> torch.Tensor:
     """Lloyd iterations on the device; an empty cluster keeps its centroid."""
     centroids = init
-    ones = torch.ones(train.shape[0], dtype=torch.float32, device=train.device)
     for _ in range(iters):
-        assign = _assign(train, centroids)
-        sums = torch.zeros_like(centroids).index_add_(0, assign, train)
-        counts = torch.zeros(nlist, dtype=torch.float32, device=train.device)
-        counts.index_add_(0, assign, ones)
-        new = sums / torch.clamp(counts, min=1.0)[:, None]
-        centroids = torch.where((counts > 0)[:, None], new, centroids)
+        centroids = _segment_mean(train, _assign(train, centroids), centroids)
     return centroids
 
 
@@ -127,7 +160,7 @@ class IVFIndex:
             train = device_rows[torch.from_numpy(train_idx).to(dev)].float()
             init_idx = rng.choice(train_idx.size, size=nlist, replace=False)
             init = train[torch.from_numpy(init_idx).to(dev)]
-            centroids = _kmeans(train, init, nlist, _KMEANS_ITERS)
+            centroids = _kmeans(train, init, _KMEANS_ITERS)
             assign = _assign(device_rows[:n], centroids).cpu().numpy()
         else:
             dev = resolve_device(device)
@@ -141,8 +174,7 @@ class IVFIndex:
             init = train[rng.choice(train.shape[0], size=nlist, replace=False)]
             train_t = torch.from_numpy(np.ascontiguousarray(train)).to(dev)
             centroids = _kmeans(
-                train_t, torch.from_numpy(np.ascontiguousarray(init)).to(dev),
-                nlist, _KMEANS_ITERS,
+                train_t, torch.from_numpy(np.ascontiguousarray(init)).to(dev), _KMEANS_ITERS,
             )
             assign = np.concatenate([
                 _assign(torch.from_numpy(data[a : a + (1 << 20)]).to(dev), centroids)

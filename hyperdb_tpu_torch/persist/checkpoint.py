@@ -13,9 +13,9 @@ it in both directions. A checkpoint is a directory with:
 
 The manifest carries the config, so a checkpoint is self-describing.
 Shards (``rows_per_shard=...`` at save time) are written and read
-independently; the JAX package also streams them straight onto a device
-mesh (``load_sharded_vectors``), which belongs to the multi-device slice
-and is not ported.
+independently, and :func:`load_sharded_vectors` places row ranges straight
+onto a device mesh through memory-mapped reads: the full (N, d) matrix is
+never one host array, and each mesh shard touches only the rows it owns.
 """
 
 from __future__ import annotations
@@ -112,9 +112,15 @@ def _load_vectors_host(directory: str, manifest: dict) -> np.ndarray:
     )
 
 
-def load_checkpoint(db, directory: str, load_ann_index: bool = True) -> None:
+def load_checkpoint(db, directory: str, load_ann_index: bool = True,
+                    load_vectors: bool = True) -> None:
     """Restore ``db`` (config, vectors, bookkeeping and index) from a
-    checkpoint directory."""
+    checkpoint directory.
+
+    ``load_vectors=False`` restores documents, config and bookkeeping only:
+    the vectors-beyond-host-RAM path, where the matrix goes straight to a
+    device mesh through :func:`load_sharded_vectors`
+    (``ShardedHyperDB.from_checkpoint``). It loads no index either."""
     manifest = read_manifest(directory)
     with open(os.path.join(directory, "state.json")) as f:
         state = json.load(f)
@@ -127,7 +133,8 @@ def load_checkpoint(db, directory: str, load_ann_index: bool = True) -> None:
     db.add_timestamp = bool(manifest.get("add_timestamp", False))
     db.n_trees = manifest.get("n_trees", 10)
 
-    db._store.set(_load_vectors_host(directory, manifest))
+    if load_vectors:
+        db._store.set(_load_vectors_host(directory, manifest))
     db.ann_dim = int(manifest["dim"])
     db.documents = state["documents"]
     db.source_indices = [int(i) for i in state["source_indices"]]
@@ -138,7 +145,7 @@ def load_checkpoint(db, directory: str, load_ann_index: bool = True) -> None:
     db.clear_cache()
 
     index_path = os.path.join(directory, "index.npz")
-    if not load_ann_index:
+    if not (load_ann_index and load_vectors):
         # a previous corpus's index on this db instance must not survive
         db.ann_index = None
         db._ivf_built_rows = 0
@@ -149,3 +156,50 @@ def load_checkpoint(db, directory: str, load_ann_index: bool = True) -> None:
             db._restore_index(_unflatten_state(dict(f.items())))
     else:
         db._build_ann_index()
+
+
+def load_sharded_vectors(directory: str, mesh, axis: str = "data"):
+    """Load checkpoint vectors straight onto a device mesh.
+
+    Returns ``(rows, n)``: a (n_pad, d)
+    :class:`~hyperdb_tpu_torch.parallel.distributed.ShardedRows` over
+    ``mesh[axis]`` (zero rows pad each shard to a multiple of 128, the
+    ShardedHyperDB layout) and the true row count. The files are opened
+    with ``mmap_mode="r"`` and each shard reads only the row range it owns,
+    so the host holds one shard's rows at a time, never the corpus. A
+    float16 manifest gives bf16 device rows, anything else f32.
+    """
+    import torch
+
+    from hyperdb_tpu_torch.parallel.distributed import ShardedRows, pad_rows_per_shard
+
+    manifest = read_manifest(directory)
+    n, d = int(manifest["num_rows"]), int(manifest["dim"])
+    shard_counts = manifest.get("vector_shards")
+    if shard_counts:
+        mmaps = [np.load(p, mmap_mode="r") for p in _shard_paths(directory, len(shard_counts))]
+        starts = np.concatenate([[0], np.cumsum(shard_counts)]).astype(np.int64)
+    else:
+        mmaps = [np.load(os.path.join(directory, "vectors.npy"), mmap_mode="r")]
+        starts = np.array([0, n], dtype=np.int64)
+
+    n_shards = mesh.shape[axis]
+    per_shard = pad_rows_per_shard(n, n_shards)
+    dev_dtype = torch.bfloat16 if np.dtype(manifest["dtype"]) == np.float16 else torch.float32
+
+    def read_rows(lo: int, hi: int) -> np.ndarray:
+        """Rows [lo, hi) of the padded matrix, touching only owning files."""
+        out = np.zeros((hi - lo, d), dtype=np.float32)
+        for i, m in enumerate(mmaps):
+            s, e = int(starts[i]), int(starts[i + 1])
+            a, b = max(lo, s), min(min(hi, n), e)
+            if a < b:
+                out[a - lo : b - lo] = m[a - s : b - s]
+        return out
+
+    first = mesh.first_shard(axis)
+    shards = []
+    for j, dev in enumerate(mesh.local_devices(axis)):
+        lo = (first + j) * per_shard
+        shards.append(torch.from_numpy(read_rows(lo, lo + per_shard)).to(dev).to(dev_dtype))
+    return ShardedRows(shards, per_shard * n_shards, first), n

@@ -433,7 +433,7 @@ def make_server(db, host: str = "127.0.0.1", port: int = 8901,
 
     ``db`` is a :class:`~hyperdb_tpu_torch.HyperDB`, or a wrapper with the
     same query surface that exposes the host db as ``.db`` (corpus
-    statistics come from it; sharded serving is ROADMAP queue 1, item 12).
+    statistics come from it), such as a ``ShardedHyperDB``.
 
     ``dynamic_batch_ms`` > 0 enables dynamic batching: concurrent /query
     requests with identical parameters coalesce for up to that many

@@ -4,9 +4,10 @@ package's, on the same JSONL corpus, with ``--device cpu``.
 ``build`` in each package gives the same ``stats``; ``query`` gives the
 same documents and ids, scores within ``ATOL`` (the hash embedder's
 vectors are bit-equal; two f32 scans sum them in different orders). A
-checkpoint written by one package's CLI loads in the other's. The
-subcommands that wait for later parts of the port (``serve --sharded``,
-``selectembed``) exit non-zero with a message naming their ROADMAP item.
+checkpoint written by one package's CLI loads in the other's. ``serve
+--sharded`` wraps the loaded DB in a ``ShardedHyperDB``; ``selectembed``,
+which waits for the training part of the port, exits non-zero with a
+message naming its ROADMAP item.
 """
 
 import json
@@ -143,12 +144,26 @@ def test_selectembed_waits_for_the_training_port(tmp_path):
     assert exc.value.code != 0
 
 
-def test_serve_sharded_waits_for_the_multi_device_port(corpus_file, tmp_path, capsys):
+def test_serve_sharded_waits_for_the_multi_device_port(corpus_file, tmp_path, capsys, monkeypatch):
+    """`serve --sharded` (the multi-device port is here now) serves the
+    checkpoint through a ShardedHyperDB over one shard of the DB's device,
+    as the JAX CLI wraps its DB over a mesh of every device; the wrapper
+    answers as the DB it wraps."""
+    from hyperdb_tpu_torch import server as server_mod
+    from hyperdb_tpu_torch.parallel.sharded_db import ShardedHyperDB
+
     ckpt = str(tmp_path / "c4.ckpt")
     port_main(["build", "--input", corpus_file, "--output", ckpt])
-    with pytest.raises(SystemExit, match="item 12") as exc:
-        port_main(["serve", "--db", ckpt, "--sharded"])
-    assert exc.value.code != 0
+    seen = {}
+    monkeypatch.setattr(server_mod, "serve", lambda db, **kw: seen.update(db=db) or 0)
+    assert port_main(["serve", "--db", ckpt, "--sharded"]) == 0
+    sdb = seen["db"]
+    assert isinstance(sdb, ShardedHyperDB) and sdb.mesh.shape["data"] == 1
+    assert sdb.mesh.local_devices() == [sdb.db.device]
+    got = sdb.query_batch(["hunts in rivers"], top_k=2)[0]
+    want = sdb.db.query("hunts in rivers", top_k=2)
+    assert [r[2] for r in got] == [r[2] for r in want]
+    np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want], rtol=0, atol=ATOL)
 
 
 def test_serve_native_and_stdlib(corpus_file, tmp_path, capsys, monkeypatch):

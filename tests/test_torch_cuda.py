@@ -730,9 +730,12 @@ def _clustered_rows(n, d, seed):
 
 
 def test_ivf_db_on_card_matches_cpu(dev, monkeypatch):
-    """An IVF DB built on the card against the same DB on the CPU: with the
-    card's index state carried to the CPU DB, both probe the same candidates
-    and answer the same (single queries and the batched frontier)."""
+    """An IVF DB built on the card against the same DB on the CPU: the
+    build is deterministic (exact fixed-point centroid sums, f64
+    assignment logits), so two builds on the card give the same lists and
+    the CPU build gives them too; with the card's index state carried to the
+    CPU DB, both probe the same candidates and answer the same (single
+    queries and the batched frontier)."""
     from hyperdb_tpu_torch import HyperDB
     from hyperdb_tpu_torch.config import CONFIG
     from hyperdb_tpu_torch.core import db as DB
@@ -745,7 +748,11 @@ def test_ivf_db_on_card_matches_cpu(dev, monkeypatch):
     card = HyperDB(docs, v, device=dev)
     cpu = HyperDB(docs, v, device="cpu")
     assert isinstance(card.ann_index, IVFIndex) and card.ann_index.device.type == "cuda"
+    again = HyperDB(docs, v, device=dev)
+    np.testing.assert_array_equal(card.ann_index.row_order, again.ann_index.row_order)
+    np.testing.assert_array_equal(card.ann_index.centroids, again.ann_index.centroids)
     np.testing.assert_array_equal(card.ann_index.row_order, cpu.ann_index.row_order)
+    np.testing.assert_array_equal(card.ann_index.offsets, cpu.ann_index.offsets)
     cpu.ann_index = IVFIndex.from_state(card.ann_index.state(), device="cpu")
     q = v[:256] + 0.05
     for a in range(4):
@@ -837,3 +844,117 @@ def test_server_on_card_answers_exactly(dev, front):
         stop()
     np.testing.assert_array_equal(ids, want_ids[0])
     np.testing.assert_array_equal(vals, want_vals[0])
+
+
+# ---------------------------------------------------------------- multi-device
+
+
+def _sharded_pair(dev, n=20000, d=64, f16=False, seed=9):
+    from hyperdb_tpu_torch import HyperDB
+
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    docs = [{"i": i, "grp": "ab"[i % 2], "ts": float(i % 97)} for i in range(n)]
+    kw = {"fp_precision": "float16"} if f16 else {}
+    return HyperDB(docs, v, metadata_keys=["grp", "ts"], device=dev, **kw), v
+
+
+def _tie_aware(got_ids, got_vals, want_ids, want_vals, atol):
+    assert got_ids.shape == want_ids.shape
+    assert np.abs(got_vals - want_vals).max() <= atol
+    assert ((got_ids == want_ids) | (np.abs(got_vals - want_vals) <= atol)).all()
+
+
+@pytest.mark.parametrize("metric", ["cosine_similarity", "dot_product", "euclidean_metric",
+                                    "manhattan_distance", "pearson_correlation"])
+def test_sharded_db_on_card_matches_single_device(dev, monkeypatch, metric):
+    """A ShardedHyperDB of 4 shards on cuda:0 against the single-device DB
+    it wraps, with the grouped routes (and their kernels) reached per shard:
+    ids tie-aware equal, scores within 1e-5 (bf16 planes, f32 sums in other
+    orders; 1e-8 for manhattan's ~1e-2 scores). Euclidean shards score the
+    plain f64 form against the f32 query, which the single-device DB takes
+    only below the grouped threshold: it keeps the default threshold here."""
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.parallel import make_mesh
+    from hyperdb_tpu_torch.parallel.sharded_db import ShardedHyperDB
+
+    if metric != "euclidean_metric":
+        monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 2048)
+    db, v = _sharded_pair(dev, f16=True)
+    sdb = ShardedHyperDB(db, make_mesh(4, device=dev))
+    assert sdb.mesh.local_devices() == [torch.device("cuda", 0)] * 4
+    assert all(s.is_cuda for s in sdb.rows.shards) and len(sdb.rows.shards) == 4
+    rng = np.random.default_rng(10)
+    q = (v[rng.integers(0, len(v), 512)] + 0.1 * rng.standard_normal((512, v.shape[1]))).astype(np.float32)
+    before = dict(G.LAUNCHES), dict(L.LAUNCHES)
+    gi, gv = sdb.query_batch_arrays(q, top_k=10, metric=metric)
+    wi, wv = db.query_batch_arrays(q, top_k=10, metric=metric)
+    atol = 1e-8 if metric == "manhattan_distance" else ATOL
+    _tie_aware(gi, gv, wi, wv, atol)
+    if metric in ("cosine_similarity", "pearson_correlation"):
+        assert G.LAUNCHES["gmax_f_sub"] >= before[0]["gmax_f_sub"] + 4  # every shard
+    if metric == "manhattan_distance":
+        assert L.LAUNCHES["gmax_l1t"] >= before[1]["gmax_l1t"] + 4
+    fi, fv = sdb.query_batch_arrays(q[:64], top_k=10, metric=metric,
+                                    filters=[("metadata", {"grp": "a"})])
+    wfi, wfv = db.query_batch_arrays(q[:64], top_k=10, metric=metric,
+                                     filters=[("metadata", {"grp": "a"})])
+    _tie_aware(fi, fv, wfi, wfv, atol)
+    assert not (fi % 2).any()
+
+
+def test_sharded_int8_pure_on_card_matches_single_device(dev, monkeypatch):
+    """int8-pure shards on cuda:0 (gmax_int8 per shard) against the
+    single-device int8-pure DB: the same quantized scores."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.parallel import make_mesh
+    from hyperdb_tpu_torch.parallel.sharded_db import ShardedHyperDB
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 2048)
+    monkeypatch.setattr(Q, "_EPILOGUE_BUDGET_BYTES", 1 << 20)
+    rng = np.random.default_rng(11)
+    v = rng.standard_normal((16384, 128)).astype(np.float32)
+    docs = list(range(len(v)))
+    single = HyperDB(docs, v, device_precision="int8-pure", device=dev)
+    sdb = ShardedHyperDB(HyperDB(docs, v, device=dev), make_mesh(4, device=dev), precision="int8-pure")
+    q = rng.standard_normal((256, 128)).astype(np.float32)
+    before = G.LAUNCHES["gmax_int8"]
+    gi, gv = sdb.query_batch_arrays(q, top_k=10)
+    assert G.LAUNCHES["gmax_int8"] == before + 4
+    wi, wv = single.query_batch_arrays(q, top_k=10)
+    _tie_aware(gi, gv, wi, wv, 1e-6)
+
+
+def test_load_sharded_vectors_onto_the_card(dev, tmp_path):
+    """A sharded checkpoint straight onto a 4-shard mesh on the card: each
+    shard holds its rows (bf16 for a float16 master), zero rows pad each
+    shard to 128; over an f32 master the served answers equal the
+    host-built shards' (a float16 master's bf16 rows are normalized on the
+    card there, its f16 rows on the host here, as in the JAX package)."""
+    from hyperdb_tpu_torch.parallel import make_mesh
+    from hyperdb_tpu_torch.parallel.sharded_db import ShardedHyperDB
+    from hyperdb_tpu_torch.persist.checkpoint import load_sharded_vectors
+
+    db, v = _sharded_pair(dev, n=5000, d=64, f16=True)
+    path = str(tmp_path / "ckpt")
+    db.save(path, format="checkpoint", rows_per_shard=1500)
+    mesh = make_mesh(4, device=dev)
+    rows, n = load_sharded_vectors(path, mesh)
+    assert n == 5000 and rows.shape == (4 * 1280, 64) and rows.dtype == torch.bfloat16
+    host = torch.from_numpy(v.astype(np.float16).astype(np.float32)).bfloat16()
+    for j, shard in enumerate(rows.shards):
+        assert shard.is_cuda and shard.shape == (1280, 64)
+        lo, hi = j * 1280, min((j + 1) * 1280, 5000)
+        assert torch.equal(shard[: hi - lo].cpu(), host[lo:hi])
+        assert not shard[hi - lo:].any()
+    db, v = _sharded_pair(dev, n=5000, d=64)
+    path = str(tmp_path / "ckpt32")
+    db.save(path, format="checkpoint", rows_per_shard=1500)
+    sdb = ShardedHyperDB.from_checkpoint(path, mesh)
+    assert sdb.rows.dtype == torch.float32 and sdb.db.device == torch.device("cuda", 0)
+    ref = ShardedHyperDB(db, mesh)
+    q = v[:32] + 0.05
+    gi, gv = sdb.query_batch_arrays(q, top_k=10)
+    wi, wv = ref.query_batch_arrays(q, top_k=10)
+    assert np.array_equal(gi, wi) and np.abs(gv - wv).max() <= ATOL

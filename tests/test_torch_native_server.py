@@ -9,8 +9,8 @@ keep-alive and pipelining, and clean shutdown. Where a request has one
 answer, the JAX native server over the same DB gets the same request: ids
 equal, scores within ``ATOL`` (the C++ side prints JSON scores with
 ``%.7g``, and the two engines sum the same f32 rows in different orders).
-The JAX test of a sharded DB behind this server waits for the multi-device
-port.
+A ``ShardedHyperDB`` over the port's 8-shard CPU mesh is served the same
+way, beside the JAX one over its 8-device mesh.
 """
 
 import http.client
@@ -319,6 +319,42 @@ def test_port_in_use_raises():
     with native_server.NativeQueryServer(db, port=0) as srv:
         with pytest.raises(OSError, match="could not bind"):
             native_server.NativeQueryServer(db, port=srv.port)
+
+
+def test_native_server_wraps_sharded_db():
+    """The native front end serves a ShardedHyperDB through its
+    query_batch_arrays; answers equal the oracle and the JAX sharded
+    server's, and /stats says sharded."""
+    import jax
+    from jax.sharding import Mesh
+
+    from hyperdb_tpu.parallel.sharded_db import ShardedHyperDB as JaxSharded
+    from hyperdb_tpu_torch.parallel import make_mesh
+    from hyperdb_tpu_torch.parallel.sharded_db import ShardedHyperDB
+
+    rng = np.random.default_rng(5)
+    v = rng.standard_normal((512, 16)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    docs = [{"i": int(i)} for i in range(512)]
+    sdb = ShardedHyperDB(TorchDB(documents=docs, vectors=v, device="cpu"),
+                         make_mesh(8, device="cpu"))
+    jsdb = JaxSharded(JaxDB(documents=[dict(d) for d in docs], vectors=v),
+                      Mesh(np.array(jax.devices()), ("data",)))
+    srv = native_server.NativeQueryServer(sdb, port=0, max_batch=8)
+    jsrv = jax_native_server.NativeQueryServer(jsdb, port=0, max_batch=8)
+    try:
+        q = v[33] + 0.01
+        got, want = _both_binary({"port": srv.port, "jax_port": jsrv.port}, q, top_k=4)
+        _same(got, want)
+        assert got[1]["ids"] == _oracle_ids(v, q, 4).tolist()
+        conn = _conn(srv.port)
+        conn.request("GET", "/stats")
+        st = json.loads(conn.getresponse().read())
+        assert st["sharded"] is True and st["documents"] == 512
+        conn.close()
+    finally:
+        srv.close()
+        jsrv.close()
 
 
 # ---------------------------------------------------------------------------

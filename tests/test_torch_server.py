@@ -6,8 +6,8 @@ Each request goes to a JAX ``make_server`` and a port ``make_server``
 documents equal, scores within ``ATOL`` (cosine over an f32 DB: the same
 f32 rows summed in two orders). Error payloads need only the same status.
 Every server binds port 0 and is closed by its fixture; every request and
-join has a timeout. Sharded serving (``test_server.py``'s
-``test_sharded_serving_matches_host_db``) waits for the multi-device port.
+join has a timeout. Sharded serving wraps a ``ShardedHyperDB`` over the
+port's 8-shard CPU mesh beside the JAX one over its 8-device mesh.
 """
 
 import concurrent.futures
@@ -192,6 +192,36 @@ def test_concurrent_queries(served):
         for fut in concurrent.futures.as_completed(futures, timeout=120):
             i, got = fut.result()
             _same_rows(got, want[i])
+
+
+def test_sharded_serving_matches_host_db(served):
+    """The server duck-types ShardedHyperDB: /stats says sharded, and
+    /query answers as the single-device DB and the JAX sharded server do."""
+    import jax
+    from jax.sharding import Mesh
+
+    from hyperdb_tpu.parallel.sharded_db import ShardedHyperDB as JaxSharded
+    from hyperdb_tpu_torch.parallel import make_mesh
+    from hyperdb_tpu_torch.parallel.sharded_db import ShardedHyperDB
+
+    jdb, tdb = served["pair"][0].db, served["pair"][1].db
+    pair = (
+        _Served(jax_make_server, JaxSharded(jdb, Mesh(np.array(jax.devices()), ("data",)))),
+        _Served(make_server, ShardedHyperDB(tdb, make_mesh(8, device="cpu"))),
+    )
+    try:
+        (js, jb), (ts, tb) = _both(pair, "/stats", None, "GET")
+        assert js == ts == 200 and jb["sharded"] is True and tb["sharded"] is True
+        assert tb["documents"] == jb["documents"] == 64
+        q = served["vectors"][11].tolist()
+        (js, jb), (ts, tb) = _both(pair, "/query", {"vector": q, "top_k": 5})
+        assert js == ts == 200
+        _same_rows(tb["results"], jb["results"])
+        want = tdb.query(np.asarray(q, dtype=np.float32), top_k=5)
+        assert [r["index"] for r in tb["results"]] == [r[2] for r in want]
+    finally:
+        for s in pair:
+            s.close()
 
 
 @pytest.fixture()
