@@ -167,6 +167,31 @@ Phases, one or a few lines each on standard output:
    the card over nccl) and ``tools/multihost_fault_dryrun.py`` (a hung
    follower must raise on the leader within its 5 s deadline).
 
+15. path I, training (after path E): the shipped ``local-384`` weights
+   (``load_saved_params``) on the card and on the CPU. I1: one AdamW step
+   of ``models/train.make_train_step`` on 32 ``localdata.training_pairs``
+   at seq 64, lr 3e-4, card against CPU: loss within 5e-3 relative, at most
+   5 % of the bf16 weights more than one ulp apart, none more than 4 ulps +
+   2.1 lr (the CPU parity tests' bound). I2: the step timed (median of CUDA
+   events after warm-up, a donated step) at full width: local-384 at batch
+   256 and MiniLM-L6 at ``finetune``'s batch 32, ms/step, tokens/s (query
+   and document tokens), peak memory, beside the bound: three times the
+   forward's matmul operations over the bf16 rate. I3: meshes of (data 1),
+   (data 4) and (data 2, model 2) shards on ``cuda:0`` at batch 256, each
+   held to the single-device step by I1's bound and timed. I4: ``finetune``
+   of MiniLM-L6 on the card (100 steps of 32 pairs, lr 1e-4; the mean of the
+   last three losses must be under the first), then a float16 DB of 2^18
+   ``localdata.retrieval_eval_set`` documents whose vectors are the
+   fine-tuned encoder's, with ``make_embedding_function`` over it: the
+   set's 512 paraphrase queries as one text batch through
+   ``generate_query_vectors_batch_device`` + ``query_batch_arrays`` must
+   launch ``gmax_f_sub`` on the ``wgmma`` variant (counters set to 0 just
+   before), ids tie-aware equal to the exact reference; recall@1/10 of the
+   fine-tuned and the untrained encoder against the set's targets, reported.
+   I5: ``python -m hyperdb_tpu_torch selectembed`` as a process on the card
+   over a JSONL corpus of stdlib docstrings: ranked rows with all four
+   candidates.
+
 Then a JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no last line. It needs one CUDA device and refuses to run
@@ -241,6 +266,17 @@ G4_DOCS = 4096  # path G4: documents of the CLI's build
 H3_SECONDS = 3.0  # path H3: the measured window of the sharded serving phase
 H1_SHARD_MIN_ROWS = 1 << 17  # path H1: grouped_topk_min_rows for shards of 250112 rows
 H4_DOCS2 = 20_000  # path H4: documents (1-3 rows each) behind the document surface
+# path I: training. Sequence length and learning rate of the timed steps
+# (benchmarks/train_encoder.py's --seq 64 --lr 3e-4); I1's batch, which the
+# CPU steps through in seconds; I2's batches: the trainer's --batch 256 for
+# local-384, finetune's default 32 for MiniLM-L6; I4's finetune steps and
+# the documents of its DB (2^18: grouped_topk_min_rows, the default route);
+# I5's stdlib files behind the selectembed corpus
+I_SEQ, I_LR = 64, 3e-4
+I1_BATCH = 32
+I2_LOCAL_BATCH, I2_L6_BATCH = 256, 32
+I4_STEPS, I4_DOCS = 100, 1 << 18
+I5_FILES = 60
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOAD_TOOL = os.path.join(ROOT, "hyperdb_tpu_torch", "tools", "serve_load.py")
 NEG_INF = float("-inf")
@@ -3027,6 +3063,315 @@ def path_multiprocess(card: str) -> None:
         log(f"path H4 {label}: passed in {dt:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------- path I: training
+
+
+def train_bound_ms(batch: int, seq: int, cfg) -> tuple[float, str]:
+    """Least time of one InfoNCE step over ``batch`` (query, document) pairs
+    of ``seq`` tokens: three times the forward's matmul operations (the
+    backward does two products for each of the forward's) over the bf16
+    tensor-core rate; its bytes (the weights, their gradients and AdamW's
+    two moments, read and written) are far below that."""
+    fwd, _ = encoder_bound_ms(2 * batch * seq, seq, cfg)
+    return 3.0 * fwd, "operations"
+
+
+def card_device() -> torch.device:
+    from hyperdb_tpu_torch.core.db import resolve_device
+
+    return resolve_device("cuda")
+
+
+def local_training_setup():
+    """The shipped local-384 encoder's config, WordPiece tokenizer and
+    weights (``load_saved_params``: bf16, layer norms f32), on the host."""
+    from hyperdb_tpu_torch.models.minilm import ASSETS_DIR, MiniLMEmbedder, load_saved_params
+
+    enc = MiniLMEmbedder.from_local_assets(device="cpu")
+    return enc.config, enc._tokenizer, load_saved_params(os.path.join(ASSETS_DIR, "encoder_local.npz"))
+
+
+def pairs_batch(pairs, tokenizer, seq: int) -> dict:
+    from hyperdb_tpu_torch.models.finetune import _tokenize_batch
+
+    q_ids, q_mask = _tokenize_batch([p[0] for p in pairs], tokenizer, seq)
+    d_ids, d_mask = _tokenize_batch([p[1] for p in pairs], tokenizer, seq)
+    return {"q_ids": q_ids, "q_mask": q_mask, "d_ids": d_ids, "d_mask": d_mask}
+
+
+def one_step(params, cfg, batch, device, mesh=None):
+    """One AdamW step of ``make_train_step`` from ``params`` (left as they
+    were) on ``device`` (or ``mesh``): (loss, updated weights on the host)."""
+    from hyperdb_tpu_torch.models import train as T
+    from hyperdb_tpu_torch.models.minilm import MiniLM
+
+    dev = device if mesh is None else mesh.devices.flat[0]
+    p = {k: v.to(dev) for k, v in params.items()}
+    opt = T.make_adamw(p, I_LR)
+    step = T.make_train_step(mesh, MiniLM(cfg, device=dev), opt, p, donate=False)
+    out, _, loss = step(p, T.init_opt_state(p), batch)
+    return float(loss), {k: v.cpu() for k, v in out.items()}
+
+
+def step_diff(got: dict, want: dict) -> tuple[float, float, float]:
+    """(largest weight difference, share of weights more than one ulp of
+    their dtype apart, largest difference over 4 ulps + 2.1 lr)."""
+    worst = share_n = total = 0.0
+    excess = 0.0
+    for k, w in want.items():
+        g, w32 = got[k].float(), w.float()
+        d = (g - w32).abs()
+        ulp = torch.maximum(g.abs(), w32.abs()) * (2.0 ** -7 if w.dtype == torch.bfloat16 else 2.0 ** -23)
+        worst = max(worst, float(d.max()))
+        share_n += float((d > ulp).sum())
+        total += d.numel()
+        excess = max(excess, float((d / (4 * ulp + 2.1 * I_LR)).max()))
+    return worst, share_n / total, excess
+
+
+def check_step(label, loss, want_loss, got, want) -> None:
+    """The CPU parity tests' bound for bf16 weights after one AdamW step
+    (``tests/test_torch_train.py``): loss within 5e-3 relative, at most 5 %
+    of the weights more than one ulp apart, none more than 4 ulps + 2.1 lr:
+    a noise-sized gradient of either sign moves a weight by Adam's
+    normalised update, up to lr, which bf16 moments round to at most 1 %
+    past it."""
+    worst, share, excess = step_diff(got, want)
+    log(f"path I {label}: loss {loss:.6f} against {want_loss:.6f}; largest weight difference "
+        f"{worst:.3g}, {share:.5f} of bf16 weights more than one ulp apart, worst/(4 ulp + 2.1 lr) "
+        f"{excess:.3f}")
+    if abs(loss - want_loss) > 5e-3 * abs(want_loss) or share > 0.05 or excess > 1.0:
+        raise AssertionError(f"path I {label}: the step is off its reference")
+
+
+def phase_train_card_vs_cpu(cfg, tokenizer, params, pairs, card: str) -> None:
+    """I1: one step of the local-384 encoder on the card against the CPU."""
+    batch = pairs_batch(pairs[:I1_BATCH], tokenizer, I_SEQ)
+    t = time.perf_counter()
+    cpu_loss, cpu_out = one_step(params, cfg, batch, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t
+    loss, out = one_step(params, cfg, batch, card_device())
+    log(f"path I1 local-384 step b={I1_BATCH} seq={I_SEQ} lr {I_LR}: CPU {cpu_s:.1f} s [{card}]")
+    check_step("I1 card vs CPU", loss, cpu_loss, out, cpu_out)
+
+
+def time_step(params, cfg, batch, mesh=None, reps: int = 10) -> dict:
+    """ms per step (median of CUDA-event times after warm-up; the step's
+    host work included), tokens/s and peak memory of a donated step."""
+    from hyperdb_tpu_torch.models import train as T
+    from hyperdb_tpu_torch.models.minilm import MiniLM
+
+    dev = card_device()
+    p = {k: v.to(dev, copy=True) for k, v in params.items()}
+    opt = T.make_adamw(p, I_LR)
+    step = T.make_train_step(mesh, MiniLM(cfg, device=dev), opt, p, donate=True)
+    state = [p, T.init_opt_state(p)]
+    dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def run():
+        state[0], state[1], _ = step(state[0], state[1], dev_batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(run, reps=reps, warmup=3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    host = []  # the host's time to dispatch one step: near ms/step, the step is host-bound
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        host.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    b, s = batch["q_ids"].shape
+    return {"ms": ms, "tokens_s": 2 * b * s / ms * 1e3, "peak_mib": peak,
+            "host_ms": statistics.median(host)}
+
+
+def phase_train_timing(cfg, tokenizer, params, pairs, card: str):
+    """I2: the step at full width, timed: local-384 at batch 256 (the
+    trainer's defaults), MiniLM-L6 at ``finetune``'s batch 32."""
+    from hyperdb_tpu_torch.models.minilm import EncoderConfig, HashingTokenizer, init_params
+
+    batch = pairs_batch(pairs[:I2_LOCAL_BATCH], tokenizer, I_SEQ)
+    l6 = EncoderConfig()
+    runs = [("local-384", cfg, params, batch),
+            ("MiniLM-L6", l6, init_params(l6, 0, torch.float32),
+             pairs_batch(pairs[:I2_L6_BATCH], HashingTokenizer(), I_SEQ))]
+    for name, c, p, bt in runs:
+        r = time_step(p, c, bt)
+        b = bt["q_ids"].shape[0]
+        bound, by = train_bound_ms(b, I_SEQ, c)
+        log(f"path I2 train step {name} b={b} seq={I_SEQ}: ms/step={r['ms']:.4f} "
+            f"tokens/s={r['tokens_s']:.1f} bound_ms={bound:.4f} ({by}) bound/ms={bound / r['ms']:.3f} "
+            f"host dispatch ms={r['host_ms']:.4f} peak memory {r['peak_mib']:.1f} MiB [{card}]")
+    return batch
+
+
+def phase_train_meshes(cfg, params, batch, card: str) -> None:
+    """I3: (data 1), (data 4) and (data 2, model 2) meshes on cuda:0 at
+    batch 256, each held to the single-device step and timed."""
+    from hyperdb_tpu_torch.parallel.mesh import make_mesh
+
+    dev = card_device()
+    want_loss, want = one_step(params, cfg, batch, dev)
+    single = time_step(params, cfg, batch)["ms"]
+    for n, m in ((1, 1), (4, 1), (4, 2)):
+        mesh = make_mesh(n, model_parallel=m)
+        if {str(d) for d in mesh.devices.flat} != {str(dev)}:
+            raise AssertionError(f"path I3: mesh {mesh} is not on {dev}")
+        loss, got = one_step(params, cfg, batch, None, mesh=mesh)
+        check_step(f"I3 mesh {mesh.shape} vs one device", loss, want_loss, got, want)
+        r = time_step(params, cfg, batch, mesh=mesh)
+        log(f"path I3 mesh {mesh.shape} b={batch['q_ids'].shape[0]}: ms/step={r['ms']:.4f} "
+            f"(one device {single:.4f}) tokens/s={r['tokens_s']:.1f} host dispatch "
+            f"ms={r['host_ms']:.4f} [{card}]")
+
+
+def encode_blocks(blocks, emb, n: int) -> torch.Tensor:
+    """``emb.encode``'s rows on the card from blocks of its own
+    ``_prep_batch``: (n, dim) f32."""
+    return torch.cat([emb._forward(ids, mask) for ids, mask in blocks])[:n]
+
+
+def retrieval_recall(q: torch.Tensor, docs: torch.Tensor, targets, ks=(1, 10)) -> dict:
+    """recall@k of exact cosine top-k (unit rows) against the set's targets."""
+    top = torch.topk(q @ docs.t(), max(ks), dim=1).indices.cpu().numpy()
+    tgt = np.asarray(targets)[:, None]
+    return {f"recall@{k}": float((top[:, :k] == tgt).any(axis=1).mean()) for k in ks}
+
+
+def phase_finetune_serve(kernels, seed: int, card: str) -> None:
+    """I4: ``finetune`` on the card, then the fine-tuned encoder behind a
+    float16 DB of 2^18 documents answering one text batch of 512."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.core.chunker import default_tokenizer
+    from hyperdb_tpu_torch.models import localdata
+    from hyperdb_tpu_torch.models import finetune as FT
+    from hyperdb_tpu_torch.models.embedder import make_embedding_function
+    from hyperdb_tpu_torch.models.minilm import EncoderConfig, MiniLMEmbedder, init_params
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.query import engine as E
+
+    pairs = localdata.training_pairs(I4_STEPS * I2_L6_BATCH, seed=seed + 1)
+    acc = {"step": 0.0}
+    make_step = FT.make_train_step
+    FT.make_train_step = lambda *a, **kw: timed(make_step(*a, **kw), acc, "step", sync=True)
+    try:
+        t = time.perf_counter()
+        emb = FT.finetune(pairs, epochs=1, batch_size=I2_L6_BATCH, seq_len=I_SEQ,
+                          learning_rate=1e-4, seed=seed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    finally:
+        FT.make_train_step = make_step
+    losses = emb.losses
+    first, last3 = losses[0], float(np.mean(losses[-3:]))
+    log(f"path I4 finetune MiniLM-L6: {len(losses)} steps of {I2_L6_BATCH} in {acc['step']:.2f} s "
+        f"= {len(losses) / acc['step']:.2f} steps/s (the first included), {dt:.2f} s with set-up "
+        f"and host tokenisation; loss {first:.4f} -> {last3:.4f} (mean of the last 3) on "
+        f"{emb.device} [{card}]")
+    if emb.device != card_device() or len(losses) != I4_STEPS or not last3 < first:
+        raise AssertionError("path I4: finetune did not lower the loss on the card")
+
+    t = time.perf_counter()
+    docs, queries, targets = localdata.retrieval_eval_set(num_docs=I4_DOCS, num_queries=512,
+                                                          seed=seed + 777)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    blocks = [emb._prep_batch(docs[i:i + emb._MAX_BATCH]) for i in range(0, len(docs), emb._MAX_BATCH)]
+    tok_s = time.perf_counter() - t
+    t = time.perf_counter()
+    doc_rows = encode_blocks(blocks, emb, len(docs))
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t
+    untrained = MiniLMEmbedder(params=init_params(EncoderConfig(), seed, torch.float32),
+                               tokenizer=emb._tokenizer, device="cuda")
+    base_rows = encode_blocks(blocks, untrained, len(docs))
+    del blocks
+    log(f"path I4 documents: {len(docs)} made in {gen_s:.1f} s, tokenised in {tok_s:.1f} s, "
+        f"encoded in {enc_s:.1f} s [{card}]")
+
+    t = time.perf_counter()
+    db = HyperDB(documents=docs, vectors=doc_rows.cpu().numpy(), fp_precision="float16",
+                 embedding_function=make_embedding_function(emb, default_tokenizer()))
+    torch.cuda.synchronize()
+    log(f"path I4 db build: {db.size()} x {db.dim} f16 in {time.perf_counter() - t:.1f} s")
+    dv = db._store.device_view(db.source_indices)
+    plane, n = dv["rows_norm"], db.size()
+    if n < CONFIG.grouped_topk_min_rows:  # the default route, no threshold lowered
+        raise AssertionError(f"path I4: {n} rows fall under grouped_topk_min_rows")
+    zero_launches(G)
+    block = E.generate_query_vectors_batch_device(db, queries)
+    ids, vals = db.query_batch_arrays(block, top_k=TOP_K, n_valid=len(queries))
+    launches = dict(G.LAUNCHES)
+    by_variant = check_variant(G, "path I4")
+    log(f"path I4 text b=512 launches: {json.dumps(launches)} by variant: {json.dumps(by_variant)}")
+    if launches["gmax_f_sub"] < 1 or by_variant["wgmma"] < 1:
+        raise AssertionError("path I4: the fine-tuned encoder's batch did not launch gmax_f_sub (wgmma)")
+    kernels["gmax_f_sub"]["launches"] += launches["gmax_f_sub"]
+    q_host = block[: len(queries)].cpu().numpy()
+    swaps, err = check_ids("I4 text b=512", ids, vals, plane, n, q_host, TOP_K)
+    log(f"path I4 text b=512: ids tie-aware equal to the reference ({swaps} tied swaps, "
+        f"score err {err:.3g})")
+    wall = wall_ms(lambda: db.query_batch_arrays(
+        E.generate_query_vectors_batch_device(db, queries), top_k=TOP_K, n_valid=len(queries)), 5)
+    log(f"path I4 text b=512 ms/batch={wall:.3f} q/s={512 / wall * 1e3:.1f} [{card}]")
+    tuned = {f"recall@{k}": float((ids[:, :k] == np.asarray(targets)[:, None]).any(axis=1).mean())
+             for k in (1, 10)}
+    base = retrieval_recall(untrained.encode_device(queries)[: len(queries)], base_rows, targets)
+    log(f"path I4 recall over {n} documents, 512 paraphrase queries (reported, not gated): "
+        f"fine-tuned {json.dumps(tuned)} (the DB's answers), untrained {json.dumps(base)}")
+    del db, dv, plane, doc_rows, base_rows, block
+    torch.cuda.empty_cache()
+
+
+def phase_selectembed(card: str) -> None:
+    """I5: ``python -m hyperdb_tpu_torch selectembed`` on the card over a
+    JSONL corpus of stdlib docstrings."""
+    import shutil
+
+    from hyperdb_tpu_torch.models import localdata
+
+    texts = localdata.stdlib_texts(max_files=I5_FILES)
+    work = os.path.join(ROOT, "build", "smoke_train")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "corpus.jsonl")
+    try:
+        with open(path, "w") as f:
+            f.write("\n".join(json.dumps({"text": t}) for t in texts))
+        out, wall = run_cli("selectembed", "--input", path, "--max-docs", "400")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for row in rows:
+        log(f"path I5 selectembed: {json.dumps(row)}")
+    names = [r["encoder"] for r in rows]
+    r10 = [r["recall@10"] for r in rows]
+    if not {"trained_local", "hybrid_w70", "hash_384", "lexical_4096"} <= set(names) or r10 != sorted(r10, reverse=True):
+        raise AssertionError(f"path I5: selectembed rows {names} incomplete or not ranked")
+    log(f"path I5 selectembed over {len(texts)} docstrings: {wall:.1f} s as a process [{card}]")
+
+
+def path_training(kernels, seed: int, card: str) -> None:
+    """Path I: training on the card, then the fine-tuned encoder serving."""
+    from hyperdb_tpu_torch.models import localdata
+
+    t0 = time.perf_counter()
+    cfg, tokenizer, params = local_training_setup()
+    pairs = localdata.training_pairs(I2_LOCAL_BATCH, seed=seed + 3)
+    phase_train_card_vs_cpu(cfg, tokenizer, params, pairs, card)
+    batch = phase_train_timing(cfg, tokenizer, params, pairs, card)
+    phase_train_meshes(cfg, params, batch, card)
+    log(f"path I1-I3: {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    phase_finetune_serve(kernels, seed, card)
+    log(f"path I4: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_selectembed(card)
+    log(f"path I5: {time.perf_counter() - t:.1f} s; path I: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3166,6 +3511,9 @@ def main() -> int:
 
     # 11. path E: text and persistence
     path_text(kernels, args.seed, card)
+
+    # 15. path I: training, then the fine-tuned encoder serving
+    path_training(kernels, args.seed, card)
 
     # 14. path H4: the multi-process launchers
     t = time.perf_counter()

@@ -5,6 +5,7 @@
     python -m hyperdb_tpu_torch stats  --db corpus.ckpt
     python -m hyperdb_tpu_torch bench  --db corpus.ckpt --batch 64
     python -m hyperdb_tpu_torch serve  --db corpus.ckpt [--native]
+    python -m hyperdb_tpu_torch selectembed --input docs.jsonl
 
 Every subcommand runs on the CUDA card unless ``--device cpu`` asks for the
 CPU. JSONL input: one JSON document per line. Checkpoints use the binary
@@ -77,12 +78,37 @@ def cmd_build(args):
 
 
 def cmd_selectembed(args):
-    """Measure the candidate default encoders on the user's corpus: needs
-    the training package's retrieval evaluation, not ported yet."""
-    raise SystemExit(
-        "selectembed is not ported yet: it needs models/localdata.py "
-        "(ROADMAP.md queue 1, item 13)"
+    """Measure the candidate default encoders on a split-half self-eval
+    over the user's corpus and print the ranked report (one JSON row per
+    encoder, best first) and the environment setting that selects the best."""
+    from hyperdb_tpu_torch.models.embedder import select_embedder_for_corpus
+
+    texts = []
+    with open(args.input) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            doc = json.loads(line)
+            if isinstance(doc, dict):
+                t = doc.get(args.text_key)
+                if t is None:  # fall back to every string field
+                    t = " ".join(str(v) for v in doc.values() if isinstance(v, str))
+            else:
+                t = str(doc)
+            if t:
+                texts.append(t)
+    best, _, report = select_embedder_for_corpus(
+        texts, max_docs=args.max_docs, seed=args.seed, device=args.device
     )
+    for name in sorted(report, key=lambda k: -report[k]["recall@10"]):
+        print(json.dumps({"encoder": name, **report[name]}))
+    env = {"trained_local": "local", "hybrid_w70": "hybrid",
+           "hash_384": "hash", "lexical_4096": "lexical"}[best]
+    print(f"# best on this corpus: {best} -> set "
+          f"HYPERDB_DEFAULT_EMBEDDER={env}"
+          + (" HYPERDB_HYBRID_W=0.70" if best == "hybrid_w70" else ""),
+          file=sys.stderr)
 
 
 def cmd_query(args):
@@ -206,12 +232,13 @@ def main(argv=None):
     p = sub.add_parser(
         "selectembed",
         help="measure which default encoder fits YOUR corpus (split-half "
-             "self-eval; not ported yet: ROADMAP.md queue 1, item 13)",
+             "self-eval; prints per-encoder recall@10/mrr + the env knob)",
     )
     p.add_argument("--input", required=True, help="JSONL corpus")
     p.add_argument("--text-key", default="text")
     p.add_argument("--max-docs", type=int, default=400)
     p.add_argument("--seed", type=int, default=0)
+    _device_arg(p)
     p.set_defaults(fn=cmd_selectembed)
 
     p = sub.add_parser("query", help="query a saved corpus")

@@ -1,2 +1,3 @@
-"""Embedding engines: the WordPiece tokenizer, the MiniLM-style encoder as
-torch modules, and the hash and hybrid embedders."""
+"""Embedding engines and their training: the WordPiece tokenizer and
+trainer, the MiniLM-style encoder as torch modules, the hash and hybrid
+embedders, the local training data, the InfoNCE step and ``finetune``."""

@@ -13,10 +13,11 @@ behind an injectable ``embedding_function`` boundary (hyperdb.py:82,
   torch modules on the card.
 
 :func:`default_embedder` picks among them as the JAX package does;
-:func:`make_embedding_function` wires one to a chunker to produce the
-reference-shaped triple ``(embeddings, source_indices, split_info)``.
-Choosing an encoder by a self-evaluation over the user's corpus
-(``select_embedder_for_corpus``) belongs to the CLI and is not ported.
+:func:`select_embedder_for_corpus` measures them on a split-half
+self-evaluation over the user's own corpus (``python -m hyperdb_tpu_torch
+selectembed``); :func:`make_embedding_function` wires one to a chunker to
+produce the reference-shaped triple ``(embeddings, source_indices,
+split_info)``.
 """
 
 from __future__ import annotations
@@ -129,6 +130,62 @@ class HybridEmbedder:
         return np.concatenate(
             [np.sqrt(self.w) * d, np.sqrt(1.0 - self.w) * h], axis=1
         )
+
+
+def corpus_self_eval_set(texts, max_docs: int = 400, seed: int = 0):
+    """Split-half retrieval eval set built from the user's own corpus: each
+    sampled text of at least 12 words splits into two word halves; given
+    the first half, retrieve the second among every other text's second
+    half. Returns (docs, queries, targets) in the
+    ``localdata.evaluate_retrieval`` shape; the JAX package's sample for the
+    same seed."""
+    rng = np.random.default_rng(seed)
+    usable = [t for t in (str(t) for t in texts) if len(t.split()) >= 12]
+    if len(usable) > max_docs:
+        idx = rng.choice(len(usable), size=max_docs, replace=False)
+        usable = [usable[i] for i in sorted(idx)]
+    docs, queries = [], []
+    for t in usable:
+        words = t.split()
+        half = len(words) // 2
+        queries.append(" ".join(words[:half]))
+        docs.append(" ".join(words[half:]))
+    return docs, queries, list(range(len(docs)))
+
+
+def select_embedder_for_corpus(texts, max_docs: int = 400, seed: int = 0, device=None):
+    """Measure the candidate default encoders on
+    :func:`corpus_self_eval_set` over the user's corpus and return
+    ``(best_name, embedder, report)``, ranked by recall@10 then MRR.
+    Candidates: ``hash_384``, ``lexical_4096`` (the 4096-d sqrt-tf hash),
+    and, where the in-repo assets exist, ``trained_local`` (the local-384
+    encoder on ``device``: the card unless the caller asks for the CPU) and
+    ``hybrid_w70``. Where the card is asked for and there is none, this
+    raises instead of dropping the dense candidates."""
+    from hyperdb_tpu_torch.core.db import resolve_device
+    from hyperdb_tpu_torch.models.localdata import evaluate_retrieval
+    from hyperdb_tpu_torch.models.minilm import MiniLMEmbedder
+
+    eval_set = corpus_self_eval_set(texts, max_docs=max_docs, seed=seed)
+    if len(eval_set[0]) < 20:
+        raise ValueError(
+            f"corpus sample too small for a meaningful self-eval "
+            f"({len(eval_set[0])} usable texts; need >= 20 with >= 12 words)"
+        )
+    candidates: dict[str, Embedder] = {
+        "hash_384": HashEmbedder(dim=384),
+        "lexical_4096": HashEmbedder(dim=4096, sublinear_tf=True),
+    }
+    dense = MiniLMEmbedder.from_local_assets(device=resolve_device(device))
+    if dense is not None:
+        candidates["trained_local"] = dense
+        candidates["hybrid_w70"] = HybridEmbedder(dense, w=0.70)
+    report = {}
+    for name, emb in candidates.items():
+        m = evaluate_retrieval(emb.encode, eval_set=eval_set)
+        report[name] = {k: round(v, 4) for k, v in m.items()}
+    best = max(report, key=lambda k: (report[k]["recall@10"], report[k]["mrr"]))
+    return best, candidates[best], report
 
 
 _EMBEDDER_LOCK = threading.Lock()

@@ -11,8 +11,9 @@ repository, read-only.
 The forward mirrors the Flax module's dtype at every step:
 - the embedding sum ``tok + pos + typ`` is bf16, in that order; ``emb_ln``
   runs in f32 and its output is cast back to bf16;
-- a ``Dense`` casts its input to bf16, rounds the product to bf16, then
-  adds its bf16 bias;
+- a ``Dense`` casts its input (and its weights, where a trainer holds
+  them in f32 as Flax's init does) to bf16, rounds the product to bf16,
+  then adds its bf16 bias; the embedding tables are cast the same way;
 - attention scores are f32 products of the bf16 operands, divided by
   sqrt(head_dim), plus a -1e9 f32 mask bias; softmax in f32; the
   probabilities are cast to bf16 for the second product;
@@ -24,8 +25,10 @@ Nothing here is a TPU kernel: the JAX package runs it as plain XLA, and the
 port as plain torch ops on the encoder's ``device``.
 
 Weights cross from the JAX package through :func:`params_from_flax` (a Flax
-parameter tree as NumPy arrays -> this module's ``state_dict``); the
-in-repo assets load through the same function. Without parameters the
+parameter tree as NumPy arrays -> this module's ``state_dict``) and back
+through :func:`params_to_flax`; the in-repo assets load through the first,
+and :func:`save_params` writes the JAX package's npz layout through the
+second. Without parameters the
 encoder is initialised from its own seeded ``torch.Generator``: it cannot
 reproduce the JAX package's ``jax.random`` seed-0 init, and random weights
 carry no meaning, so parity is always checked on carried-across weights.
@@ -87,17 +90,21 @@ _DENSE = ("query", "key", "value", "attn_output", "intermediate", "output")
 
 
 class Dense(nn.Module):
-    """Flax ``nn.Dense`` at the weight dtype: input cast to it, product
-    rounded to it, bias added in it. ``weight`` is (out, in) as in torch;
-    a Flax kernel is (in, out)."""
+    """Flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to
+    ``dtype``, product rounded to it, bias added in it. ``weight`` is (out,
+    in) as in torch; a Flax kernel is (in, out). The parameters are created
+    in ``dtype``; a trainer may hand in f32 master weights instead (the
+    casts are then real, as Flax's are for its f32 parameters)."""
 
     def __init__(self, d_in: int, d_out: int, dtype, device):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(d_out, d_in, dtype=dtype, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.weight.dtype), self.weight.t()) + self.bias
+        dt = self.dtype
+        return torch.matmul(x.to(dt), self.weight.to(dt).t()) + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -172,11 +179,12 @@ class MiniLM(nn.Module):
         )
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        seq = input_ids.shape[1]
-        tok = self.tok_emb(input_ids)
-        pos = self.pos_emb.weight[:seq][None]
-        typ = self.type_emb.weight[0]  # token type 0 everywhere
-        hidden = self.emb_ln(tok + pos + typ).to(self.dtype)
+        seq, dt = input_ids.shape[1], self.dtype
+        # Flax's Embed casts its table to the compute dtype, then looks up
+        tok = F.embedding(input_ids, self.tok_emb.weight.to(dt))
+        pos = self.pos_emb.weight[:seq].to(dt)[None]
+        typ = self.type_emb.weight[0].to(dt)  # token type 0 everywhere
+        hidden = self.emb_ln(tok + pos + typ).to(dt)
         live = attention_mask[:, None, None, :].bool()
         attn_bias = torch.where(live, 0.0, -1e9).float()
         for layer in self.layers:
@@ -226,6 +234,50 @@ def params_from_flax(tree: dict, dtype=torch.bfloat16) -> dict[str, torch.Tensor
             ln(f"layers.{i}.{name}", layer[name])
         i += 1
     return out
+
+
+def params_to_flax(state: dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`params_from_flax`: this module's ``state_dict`` ->
+    the Flax tree ``{"params": {...}}`` with float32 NumPy leaves (exact for
+    bf16 and float16 weights). A weight (out, in) becomes a Dense kernel
+    (in, out); a LayerNorm's weight becomes its ``scale``."""
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    def ln(src: str) -> dict:
+        return {"scale": arr(state[f"{src}.weight"]), "bias": arr(state[f"{src}.bias"])}
+
+    tree: dict = {name: {"embedding": arr(state[f"{name}.weight"])}
+                  for name in ("tok_emb", "pos_emb", "type_emb")}
+    tree["emb_ln"] = ln("emb_ln")
+    i = 0
+    while f"layers.{i}.query.weight" in state:
+        layer = {name: {"kernel": arr(state[f"layers.{i}.{name}.weight"]).T.copy(),
+                        "bias": arr(state[f"layers.{i}.{name}.bias"])} for name in _DENSE}
+        for name in ("attn_ln", "ffn_ln"):
+            layer[name] = ln(f"layers.{i}.{name}")
+        tree[f"layer_{i}"] = layer
+        i += 1
+    return {"params": tree}
+
+
+def save_params(params: dict[str, torch.Tensor], path: str) -> None:
+    """This module's ``state_dict`` -> a compressed npz in the JAX
+    package's layout (``hyperdb_tpu.models.minilm.save_params``): the Flax
+    tree flattened to keys ``params/<module>/<leaf>``, float16 leaves. The
+    file loads in both packages' ``load_saved_params``."""
+    flat = {}
+
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else k, v)
+        else:
+            flat[prefix] = node.astype(np.float16)
+
+    walk("", params_to_flax(params))
+    np.savez_compressed(path, **flat)
 
 
 def load_saved_params(path: str, dtype=torch.bfloat16) -> dict[str, torch.Tensor]:

@@ -1,6 +1,9 @@
-"""In-repo WordPiece tokenizer.
+"""In-repo WordPiece: trainer and tokenizer.
 
-Counterpart of ``hyperdb_tpu/models/wordpiece.py``: BERT's greedy
+Counterpart of ``hyperdb_tpu/models/wordpiece.py``. :func:`train_wordpiece`
+learns a vocabulary from local text by greedy pair merging (host Python,
+the JAX package's merges and tie-breaks, so the same texts give the same
+vocabulary list for list); :class:`WordPieceTokenizer` encodes with BERT's greedy
 longest-match-first encoding over a fixed vocabulary (the shipped one is
 ``hyperdb_tpu/models/assets/vocab.txt``). ASCII text without the
 ``_CTRL_WS`` control characters is encoded by the port's C++ WordPiece
@@ -12,16 +15,30 @@ The tokenizer implements both interfaces the engine needs:
   [CLS]/[SEP] specials — plugs into ``MiniLMEmbedder``;
 - chunker protocol (``encode(text)``/``decode(tokens)``): token-id lists for
   510-token windowing (``core/chunker.py``).
-
-The trainer (``train_wordpiece``) belongs to training and is not ported.
 """
 
 from __future__ import annotations
 
+import collections
+import heapq
 import re
 
 PAD, UNK, CLS, SEP = "[PAD]", "[UNK]", "[CLS]", "[SEP]"
 SPECIALS = (PAD, UNK, CLS, SEP)
+
+
+class _NegLex:
+    """Reverses lexicographic order inside a min-heap so equal-count pairs
+    pop in the same order the original (count, pair)-max selection used."""
+
+    __slots__ = ("pair",)
+
+    def __init__(self, pair):
+        self.pair = pair
+
+    def __lt__(self, other):
+        return self.pair > other.pair
+
 
 _WORD_RE = re.compile(r"\w+|[^\w\s]", re.UNICODE)
 
@@ -29,6 +46,88 @@ _WORD_RE = re.compile(r"\w+|[^\w\s]", re.UNICODE)
 def pretokenize(text: str) -> list[str]:
     """Lowercase words + isolated punctuation (BERT basic-tokenizer style)."""
     return _WORD_RE.findall(text.lower())
+
+
+def train_wordpiece(
+    texts,
+    vocab_size: int = 8192,
+    min_pair_freq: int = 2,
+) -> list[str]:
+    """Learn a WordPiece vocabulary by greedy pair merging (BPE recipe).
+
+    Words are split into characters (continuations prefixed ``##``); the
+    most frequent adjacent symbol pair is merged repeatedly until
+    ``vocab_size`` is reached or no pair clears ``min_pair_freq``.
+    Deterministic: ties break lexicographically.
+    """
+    word_freq: collections.Counter = collections.Counter()
+    for text in texts:
+        word_freq.update(pretokenize(text))
+
+    # symbol sequences per unique word
+    words = []
+    freqs = []
+    for word, freq in sorted(word_freq.items()):
+        symbols = [word[0]] + ["##" + c for c in word[1:]]
+        words.append(symbols)
+        freqs.append(freq)
+
+    vocab: dict[str, None] = dict.fromkeys(SPECIALS)
+    for symbols in words:
+        for s in symbols:
+            vocab.setdefault(s, None)
+
+    # Pair counts + inverted index (pair -> words containing it) so a merge
+    # touches only the words it occurs in, and a lazy-deletion max-heap so
+    # selecting the best pair is O(log P) instead of a scan. Heap entries
+    # are (-count, pair); stale entries (count changed since push) are
+    # discarded on pop. Ties break lexicographically-last to keep the
+    # original deterministic (count, pair) ordering.
+    pairs: collections.Counter = collections.Counter()
+    pair_words: dict[tuple[str, str], set[int]] = collections.defaultdict(set)
+    for wi, (symbols, freq) in enumerate(zip(words, freqs)):
+        for a, b in zip(symbols, symbols[1:]):
+            pairs[(a, b)] += freq
+            pair_words[(a, b)].add(wi)
+
+    heap = [(-c, _NegLex(p), p) for p, c in pairs.items()]
+    heapq.heapify(heap)
+
+    def bump(pair, wi, delta):
+        pairs[pair] += delta
+        if delta > 0:
+            pair_words[pair].add(wi)
+            heapq.heappush(heap, (-pairs[pair], _NegLex(pair), pair))
+
+    while len(vocab) < vocab_size and heap:
+        neg_count, _, (a, b) = heapq.heappop(heap)
+        freq = pairs.get((a, b), 0)
+        if -neg_count != freq:  # stale entry
+            if freq > 0:
+                heapq.heappush(heap, (-freq, _NegLex((a, b)), (a, b)))
+            continue
+        if freq < min_pair_freq:
+            break
+        merged = a + b[2:] if b.startswith("##") else a + b
+        vocab.setdefault(merged, None)
+        for wi in list(pair_words.get((a, b), ())):
+            symbols = words[wi]
+            f = freqs[wi]
+            i = 0
+            while i < len(symbols) - 1:
+                if symbols[i] == a and symbols[i + 1] == b:
+                    if i > 0:
+                        bump((symbols[i - 1], a), wi, -f)
+                        bump((symbols[i - 1], merged), wi, f)
+                    if i + 2 < len(symbols):
+                        bump((b, symbols[i + 2]), wi, -f)
+                        bump((merged, symbols[i + 2]), wi, f)
+                    symbols[i : i + 2] = [merged]
+                else:
+                    i += 1
+        pairs.pop((a, b), None)
+        pair_words.pop((a, b), None)
+    return list(vocab)
 
 
 class WordPieceTokenizer:

@@ -1,8 +1,9 @@
 """Device meshes: a ('data', 'model') grid of torch devices.
 
 Counterpart of ``hyperdb_tpu/parallel/mesh.py``. A corpus scales out by
-row-sharding its (N, d) matrix over the 'data' axis; the 'model' axis is
-kept for tensor-parallel encoder training, which nothing uses yet.
+row-sharding its (N, d) matrix over the 'data' axis; encoder training
+(``models/train.py``) splits its batch over 'data' and its projections over
+the 'model' axis.
 
 In one process a mesh is a list of devices, as JAX's single-controller mesh
 is, and one device may hold several shards: the CPU tests shard over eight

@@ -5,9 +5,8 @@ package's, on the same JSONL corpus, with ``--device cpu``.
 same documents and ids, scores within ``ATOL`` (the hash embedder's
 vectors are bit-equal; two f32 scans sum them in different orders). A
 checkpoint written by one package's CLI loads in the other's. ``serve
---sharded`` wraps the loaded DB in a ``ShardedHyperDB``; ``selectembed``,
-which waits for the training part of the port, exits non-zero with a
-message naming its ROADMAP item.
+--sharded`` wraps the loaded DB in a ``ShardedHyperDB``; ``selectembed``
+prints the JAX CLI's ranked rows.
 """
 
 import json
@@ -135,13 +134,69 @@ def test_serve_warmup_metrics_parsing(corpus_file, tmp_path, capsys, monkeypatch
 
 
 def test_selectembed_waits_for_the_training_port(tmp_path):
-    """`selectembed` needs the training package (ROADMAP queue 1, item 13):
-    the port keeps the subcommand and exits non-zero saying so."""
+    """`selectembed` used to exit naming the training port (ROADMAP queue
+    1, item 13), which is here now: on a corpus too small for a self-eval
+    it raises the JAX CLI's ValueError, before any encoder is built."""
     path = tmp_path / "corpus.jsonl"
     path.write_text(json.dumps({"text": "a few words"}) + "\n")
-    with pytest.raises(SystemExit, match="item 13") as exc:
+    with pytest.raises(ValueError) as want:
+        jax_main(["selectembed", "--input", str(path), "--max-docs", "40"])
+    with pytest.raises(ValueError) as got:
         main(["selectembed", "--input", str(path), "--max-docs", "40"])
-    assert exc.value.code != 0
+    assert str(got.value) == str(want.value) and "too small" in str(got.value)
+
+
+def _selectembed_corpus(tmp_path, seed: int) -> str:
+    rng = np.random.default_rng(seed)
+    vocab = [f"word{j}" for j in range(500)]
+    path = tmp_path / "corpus.jsonl"
+    path.write_text("\n".join(
+        json.dumps({"text": " ".join(rng.choice(vocab, size=24).tolist())})
+        for _ in range(40)
+    ))
+    return str(path)
+
+
+def test_selectembed_measures_corpus(tmp_path, capsys):
+    """Mirror of ``tests/test_cli.py::test_selectembed_measures_corpus``:
+    one ranked JSON row per candidate encoder, best first, and the
+    environment setting on stderr; every row equals the JAX CLI's."""
+    path = _selectembed_corpus(tmp_path, 4)
+    port_main(["selectembed", "--input", path, "--max-docs", "40"])
+    captured = capsys.readouterr()
+    rows = _json_lines(captured.out)
+    names = {r["encoder"] for r in rows}
+    assert {"hash_384", "lexical_4096", "trained_local", "hybrid_w70"} <= names
+    assert all("recall@10" in r and "mrr" in r for r in rows)
+    r10 = [r["recall@10"] for r in rows]
+    assert r10 == sorted(r10, reverse=True)
+    assert "HYPERDB_DEFAULT_EMBEDDER=" in captured.err
+    jax_main(["selectembed", "--input", path, "--max-docs", "40"])
+    want = {r["encoder"]: r for r in _json_lines(capsys.readouterr().out)}
+    got = {r["encoder"]: r for r in rows}
+    assert set(got) == set(want)
+    # the hash encoders are bit-equal; the dense encoder differs within its
+    # bf16 tolerance, which may move one of the 40 queries' near-tied ranks
+    for name in ("hash_384", "lexical_4096"):
+        assert got[name] == want[name]
+    for name in ("trained_local", "hybrid_w70"):
+        for key in ("recall@1", "recall@10", "mrr"):
+            assert abs(got[name][key] - want[name][key]) <= 0.025 + 1e-9, (name, key)
+
+
+def test_selectembed_rows_equal_select_report(tmp_path, capsys):
+    """The CLI prints ``select_embedder_for_corpus``'s report, row for row,
+    and names its best encoder."""
+    from hyperdb_tpu_torch.models.embedder import select_embedder_for_corpus
+
+    path = _selectembed_corpus(tmp_path, 5)
+    port_main(["selectembed", "--input", path, "--max-docs", "30", "--seed", "2"])
+    captured = capsys.readouterr()
+    texts = [json.loads(line)["text"] for line in open(path)]
+    best, emb, report = select_embedder_for_corpus(texts, max_docs=30, seed=2, device="cpu")
+    assert {r.pop("encoder"): r for r in _json_lines(captured.out)} == report
+    assert f"best on this corpus: {best} " in captured.err
+    assert hasattr(emb, "encode")
 
 
 def test_serve_sharded_waits_for_the_multi_device_port(corpus_file, tmp_path, capsys, monkeypatch):

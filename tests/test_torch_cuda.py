@@ -958,3 +958,77 @@ def test_load_sharded_vectors_onto_the_card(dev, tmp_path):
     gi, gv = sdb.query_batch_arrays(q, top_k=10)
     wi, wv = ref.query_batch_arrays(q, top_k=10)
     assert np.array_equal(gi, wi) and np.abs(gv - wv).max() <= ATOL
+
+
+# ---------------------------------------------------------------- training
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One AdamW step of the shipped local-384 weights (bf16) on 16 pairs at
+    seq 32, lr 3e-4, card against CPU: the CPU parity tests' bf16 bound
+    (loss within 5e-3 relative, at most 5 % of the weights more than one
+    ulp apart, none more than 4 ulps + 2.1 lr: Adam's normalised update,
+    which bf16 moments round to at most 1 % past lr, of either sign)."""
+    import os
+
+    from hyperdb_tpu_torch.models import localdata
+    from hyperdb_tpu_torch.models import train as T
+    from hyperdb_tpu_torch.models.finetune import _tokenize_batch
+    from hyperdb_tpu_torch.models.minilm import (
+        ASSETS_DIR, MiniLM, MiniLMEmbedder, load_saved_params,
+    )
+
+    enc = MiniLMEmbedder.from_local_assets(device="cpu")
+    params = load_saved_params(os.path.join(ASSETS_DIR, "encoder_local.npz"))
+    pairs = localdata.training_pairs(16, seed=4)
+    batch = {}
+    for side, i in (("q", 0), ("d", 1)):
+        batch[f"{side}_ids"], batch[f"{side}_mask"] = _tokenize_batch(
+            [p[i] for p in pairs], enc._tokenizer, 32)
+    lr, out = 3e-4, {}
+    for where in ("cpu", dev):
+        p = {k: v.to(where) for k, v in params.items()}
+        step = T.make_train_step(None, MiniLM(enc.config, device=where), T.make_adamw(p, lr), p,
+                                 donate=False)
+        new, _, loss = step(p, T.init_opt_state(p), batch)
+        out[str(where)] = (float(loss), {k: v.cpu().float() for k, v in new.items()})
+    (cl, cp), (gl, gp) = out["cpu"], out[str(dev)]
+    assert abs(gl - cl) <= 5e-3 * abs(cl)
+    over = total = 0
+    for k, w in cp.items():
+        d = (gp[k] - w).abs()
+        ulp = torch.maximum(gp[k].abs(), w.abs()) * (2.0 ** -7 if params[k].dtype == torch.bfloat16
+                                                     else 2.0 ** -23)
+        assert bool((d <= 4 * ulp + 2.1 * lr).all()), k
+        over += int((d > ulp).sum())
+        total += d.numel()
+    assert over <= 0.05 * total
+
+
+def test_finetune_on_card_serves_text_through_gmax_f_sub(dev, monkeypatch):
+    """``finetune`` on the card, then the fine-tuned encoder behind a
+    float16 DB (grouped route from 4096 rows here): a b = 512 text batch
+    through the device block launches ``gmax_f_sub`` and gives the host
+    path's ids."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.core.chunker import default_tokenizer
+    from hyperdb_tpu_torch.models import localdata
+    from hyperdb_tpu_torch.models.embedder import make_embedding_function
+    from hyperdb_tpu_torch.models.finetune import finetune
+    from hyperdb_tpu_torch.query import engine as E
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    emb = finetune(localdata.training_pairs(320, seed=2), epochs=1, batch_size=32, seq_len=32,
+                   learning_rate=1e-4)
+    assert emb.device.type == "cuda" and len(emb.losses) == 10
+    assert np.mean(emb.losses[-3:]) < emb.losses[0]
+    docs, queries, _ = localdata.retrieval_eval_set(num_docs=8192, num_queries=512, seed=5)
+    db = HyperDB(documents=docs, vectors=emb.encode(docs), fp_precision="float16",
+                 embedding_function=make_embedding_function(emb, default_tokenizer()))
+    before = G.LAUNCHES["gmax_f_sub"]
+    block = E.generate_query_vectors_batch_device(db, queries)
+    ids, vals = db.query_batch_arrays(block, top_k=10, n_valid=512)
+    assert G.LAUNCHES["gmax_f_sub"] == before + 1
+    hids, hvals = db.query_batch_arrays(E.generate_query_vectors_batch(db, queries), top_k=10)
+    assert np.array_equal(ids, hids) and np.array_equal(vals, hvals)

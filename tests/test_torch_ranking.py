@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from hyperdb_tpu import ops as JOPS
 from hyperdb_tpu.config import CONFIG as JAX_CONFIG
 from hyperdb_tpu.ops import ranking as JR
 from hyperdb_tpu_torch.config import CONFIG as TORCH_CONFIG
@@ -159,3 +160,101 @@ def test_large_manhattan_not_ported(grouped):
     assert tidx[0, :2].tolist() == [2, 9]
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
     np.testing.assert_allclose(tvals.numpy(), np.asarray(jvals), rtol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the ops package's exports: JAX's ``hyperdb_tpu.ops.__all__`` but the planar
+# route, each name held to its JAX counterpart on one small input
+# --------------------------------------------------------------------------
+
+
+def _export_cases():
+    """name -> (JAX call, port call), both on the same seeded numpy input."""
+    from hyperdb_tpu_torch import ops as tops
+
+    rng = np.random.default_rng(31)
+    n, d, b, k = 300, 24, 4, 5
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    s = rng.standard_normal((b, 4096)).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    rec = (rng.random(n) * 0.01).astype(np.float32)
+    docs = np.repeat(np.arange(n // 3), 3).astype(np.int32)
+    cand = rng.permutation(n)[:40].astype(np.int32)  # one candidate union per block
+    cand_ok = rng.random((b, 40)) < 0.8
+    vb = (v > 0).astype(np.float32)
+    ts = rng.random(n) * 100.0
+    J, T = jnp.asarray, torch.from_numpy
+    cases = {name: (lambda f=getattr(JOPS, name), g=getattr(tops, name): (f(J(q), J(v)), g(T(q), T(v))))
+             for name in ("cosine_scores", "dot_scores", "euclidean_scores", "hamming_scores",
+                          "jaccard_scores", "manhattan_scores", "pearson_scores")}
+    cases.update({
+        "METRICS": lambda: (tuple(JOPS.METRICS), tuple(tops.METRICS)),
+        "GROUPED_METRICS": lambda: (tuple(JOPS.GROUPED_METRICS), tuple(tops.GROUPED_METRICS)),
+        "normalize": lambda: (JOPS.normalize(J(v)), tops.normalize(T(v))),
+        "scores": lambda: (JOPS.scores(J(q), J(v), "dot_product"),
+                           tops.scores(T(q), T(v), "dot_product")),
+        "exact_top_k": lambda: (JOPS.exact_top_k(J(s), k), tops.exact_top_k(T(s), k)),
+        "exact_top_k_grouped": lambda: (JOPS.exact_top_k_grouped(J(s), k, group=128),
+                                        tops.exact_top_k_grouped(T(s), k, group=128)),
+        "rank_top_k": lambda: (
+            JOPS.rank_top_k(J(q), J(v), k, row_mask=J(mask), recency=J(rec)),
+            tops.rank_top_k(T(q), T(v), k, row_mask=T(mask), recency=T(rec))),
+        "rank_top_k_grouped": lambda: (
+            JOPS.rank_top_k_grouped(J(q), J(v), k, row_mask=J(mask), recency=J(rec), group=32),
+            tops.rank_top_k_grouped(T(q), T(v), k, row_mask=T(mask), recency=T(rec), group=32)),
+        "rank_top_k_grouped_metric": lambda: (
+            JOPS.rank_top_k_grouped_metric(J(q), J(vb), J(vb.sum(1)), k, "jaccard_similarity",
+                                           row_mask=J(mask), group=32),
+            tops.rank_top_k_grouped_metric(T(q), T(vb), T(vb.sum(1)), k, "jaccard_similarity",
+                                           row_mask=T(mask), group=32)),
+        "rank_docs_top_k": lambda: (
+            JOPS.rank_docs_top_k(J(q), J(v), J(docs), J(mask), k, n // 3),
+            tops.rank_docs_top_k(T(q), T(v), T(docs), T(mask), k, n // 3)),
+        "rank_gathered": lambda: (
+            JOPS.rank_gathered(J(q), J(v), J(cand), J(cand_ok), k),
+            tops.rank_gathered(T(q), T(v), T(cand), T(cand_ok), k)),
+        "ranking_algorithm_sort": lambda: (
+            JOPS.ranking_algorithm_sort(v, q[0], k, timestamps=ts, recency_bias=0.5),
+            tops.ranking_algorithm_sort(v, q[0], k, timestamps=ts, recency_bias=0.5,
+                                        device="cpu")),
+        "recency_scores": lambda: (JOPS.recency_scores(ts, 0.5), tops.recency_scores(ts, 0.5)),
+    })
+    return cases
+
+
+def _as_numpy(x):
+    if isinstance(x, torch.Tensor):
+        return x.numpy()
+    return np.asarray(x)
+
+
+def test_ops_exports_jax_names_but_the_planar_route():
+    from hyperdb_tpu_torch import ops as tops
+
+    assert tops.__all__ == [n for n in JOPS.__all__ if n != "rank_top_k_planar"]
+    assert set(_export_cases()) == set(tops.__all__)
+    assert not hasattr(tops, "rank_top_k_planar")
+
+
+@pytest.mark.parametrize("name", [n for n in JOPS.__all__ if n != "rank_top_k_planar"])
+def test_ops_export_matches_jax(name):
+    """``from hyperdb_tpu_torch.ops import <name>`` gives the JAX function's
+    answer: ids equal, floats within 1e-5 relative plus 1e-5 absolute (f32
+    sums in different orders)."""
+    exec(f"from hyperdb_tpu_torch.ops import {name}", {})
+    want, got = _export_cases()[name]()
+    if isinstance(want, tuple) and isinstance(want[0], str):
+        assert got == want
+        return
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = _as_numpy(g), _as_numpy(w)
+        assert g.shape == w.shape, (g.shape, w.shape)
+        if np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g.astype(np.float64), w.astype(np.float64),
+                                       rtol=1e-5, atol=1e-5)
