@@ -192,6 +192,29 @@ Phases, one or a few lines each on standard output:
    over a JSONL corpus of stdlib docstrings: ranked rows with all four
    candidates.
 
+16. path J, the planar capacity route (after path I): a seeded 2^24 x 384
+   float16 corpus drawn on the card (row 4 copied to rows 17 and 2^23 + 5),
+   one empty document each, after a check that the host holds the 15 GiB
+   it needs (else two planes of 2^23 + 2^22 rows, said so). The DB keeps
+   two unit-norm planes of 2^23 rows (``CONFIG.plane_rows``); their build's
+   seconds and peak host and device memory are printed, and at 2^20 rows
+   the chunked build beside the parent's f32 build (the same bits).
+   ``gmax_f_sub`` (512 x 2^23) and ``gmax_l1`` (64 x 2^23) are held to
+   their plain versions at a plane's shape. Cells through
+   ``query_batch_arrays``, each with its launches (counters set to 0 just
+   before, read just after), ms/batch, q/s and peak device memory: cosine
+   at b = 512 and 16384 and at b = 512 with a ``skip_doc`` filter
+   (``gmax_f_sub`` once per plane; ids tie-aware equal to an exact f32
+   reference over the planes, the first 512 queries at b = 16384; the
+   planted copies first, the cross-plane one after its original), with a
+   per-plane stage breakdown beside stage 1's bound; ``planar_serial_bytes``
+   0 against its default at b = 16384; the same DB as one plane
+   (``plane_rows = 0``) at b = 512, and at b = 16384 only where the
+   reckoned bytes fit the card (else the count and "not run"); manhattan at
+   b = 64 (an L1 kernel once per plane) and euclidean at b = 64 (the plain
+   per-plane scores, no launch) over the raw planes, each held to an exact
+   difference-form reference.
+
 Then a JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no last line. It needs one CUDA device and refuses to run
@@ -277,6 +300,17 @@ I1_BATCH = 32
 I2_LOCAL_BATCH, I2_L6_BATCH = 256, 32
 I4_STEPS, I4_DOCS = 100, 1 << 18
 I5_FILES = 60
+# path J: the capacity corpus (2^24 rows, or two planes of 2^23 + 2^22 where
+# the host cannot hold 2^24), the rows of a plane at the default
+# CONFIG.plane_rows, and the row block of its exact reference
+J_ROWS, J_ROWS_FALLBACK = 1 << 24, 3 << 22
+J_PLANE = 1 << 23
+J_REF_ROWS = 1 << 20
+J_BIG_BATCH = 16384  # bench.py's batch
+# path J euclidean: the route's f64 expansion against the reference's f32
+# difference form; the planted copies score near 1, where an f32 ulp is 6e-8
+# and the difference form rounds by a few
+J_EUCLIDEAN_ATOL = 1e-6
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOAD_TOOL = os.path.join(ROOT, "hyperdb_tpu_torch", "tools", "serve_load.py")
 NEG_INF = float("-inf")
@@ -3372,6 +3406,447 @@ def path_training(kernels, seed: int, card: str) -> None:
     log(f"path I5: {time.perf_counter() - t:.1f} s; path I: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- path J: capacity
+
+
+def meminfo_gib() -> dict:
+    """MemTotal and MemAvailable of the host, GiB (``/proc/meminfo``)."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) / (1 << 20)
+    return out
+
+
+def capacity_host_bytes(n: int) -> int:
+    """Host bytes path J holds at ``n`` rows: the float16 master and about
+    100 bytes of bookkeeping a row (the document lists, ``source_indices``
+    as Python ints, the store's row arrays, the engine's masks), plus the
+    plane build's chunk temporaries on every core."""
+    chunks = (os.cpu_count() or 1) * 3 * (64 << 20)
+    return n * DIM * 2 + n * 100 + chunks
+
+
+def capacity_rows() -> int:
+    """2^24, or the stated fallback of two planes (2^23 + 2^22 rows) where
+    the host cannot hold 2^24; fails where it cannot hold that either."""
+    avail = meminfo_gib()["MemAvailable"] * (1 << 30)
+    for n in (J_ROWS, J_ROWS_FALLBACK):
+        need = capacity_host_bytes(n)
+        log(f"path J: host {meminfo_gib()}; {n} rows need {need / (1 << 30):.1f} GiB of host memory")
+        if need <= 0.8 * avail:
+            if n != J_ROWS:
+                log(f"path J: the host cannot hold {J_ROWS} rows; running at {n} (two planes)")
+            return n
+    raise RuntimeError("path J: the host cannot hold two planes of the capacity corpus")
+
+
+def make_capacity_corpus(seed: int, n: int) -> np.ndarray:
+    """``n`` x DIM float16 rows drawn on the card from a seeded generator (a
+    chunk at a time) into one host array; row 4 is copied to rows 17 and
+    ``J_PLANE + 5``: the two lower ids must come first, across planes too."""
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 90)
+    host = np.empty((n, DIM), dtype=np.float16)
+    step = 1 << 22
+    for a in range(0, n, step):
+        rows = min(step, n - a)
+        block = torch.randn((rows, DIM), generator=gen, device=dev).half()
+        torch.from_numpy(host[a : a + rows]).copy_(block)
+    host[17] = host[4]
+    host[J_PLANE + 5] = host[4]
+    return host
+
+
+class PlaneReference:
+    """Exact top-k over a corpus held as planes, independent of the routes:
+    every row is scored by ``score(q, rows)`` over f32 blocks of
+    ``J_REF_ROWS`` rows (NaN -> -inf; padding and rows outside ``mask`` ->
+    -inf), a running top-k merged by a stable sort. ``pair(q, rows)``
+    scores broadcastable (.., d) queries and rows, for :meth:`exact`. It has
+    :class:`Reference`'s interface for :func:`check_top_k`."""
+
+    def __init__(self, q, planes, n, k, score, pair, mask=None):
+        self.q, self.planes, self.n, self.pair = q, planes, n, pair
+        self.offsets = np.cumsum([0] + [p.shape[0] for p in planes[:-1]]).tolist()
+        vals = ids = None
+        for plane, off in zip(planes, self.offsets):
+            for r in range(0, plane.shape[0], J_REF_ROWS):
+                block = plane[r : r + J_REF_ROWS].float()
+                gid = torch.arange(off + r, off + r + block.shape[0], device=block.device)
+                s = torch.cat([score(q[a : a + 64], block) for a in range(0, q.shape[0], 64)])
+                dead = gid >= n if mask is None else (gid >= n) | ~mask[gid]
+                s = s.masked_fill(torch.isnan(s), NEG_INF).masked_fill(dead[None, :], NEG_INF)
+                tv, tp = torch.topk(s, k, dim=1)
+                tv, ti = (tv, gid[tp]) if vals is None else (
+                    torch.cat([vals, tv], 1), torch.cat([ids, gid[tp]], 1))
+                order = torch.sort(tv, dim=1, descending=True, stable=True).indices[:, :k]
+                vals, ids = torch.gather(tv, 1, order), torch.gather(ti, 1, order)
+        self.vals, self.ids = vals, ids
+
+    def rows(self, ids: torch.Tensor) -> torch.Tensor:
+        out = torch.empty((*ids.shape, DIM), dtype=torch.float32, device=ids.device)
+        for plane, off in zip(self.planes, self.offsets):
+            sel = (ids >= off) & (ids < off + plane.shape[0])
+            out[sel] = plane[ids[sel] - off].float()
+        return out
+
+    def exact(self, ids: torch.Tensor, queries=None) -> torch.Tensor:
+        q = self.q if queries is None else self.q[queries]
+        r = self.rows(ids)
+        s = self.pair(q[:, None, :] if ids.ndim == 2 else q, r)
+        return s.masked_fill(torch.isnan(s), NEG_INF)
+
+
+def _tiled(pair):
+    """``score(q, rows)`` from a pair form, over 8192-row tiles so the
+    (c, rows, d) difference block stays under 1 GiB."""
+    return lambda q, rows: torch.cat(
+        [pair(q[:, None, :], rows[r : r + 8192][None]) for r in range(0, rows.shape[0], 8192)], 1)
+
+
+def _cosine_pair(q, r):
+    return (r * q).sum(-1)
+
+
+def _manhattan_pair(q, r):
+    return 1.0 / (1.0 + (r - q).abs().sum(-1))
+
+
+def _euclidean_pair(q, r):
+    return 1.0 / (1.0 + torch.sqrt(((r - q) ** 2).sum(-1)))
+
+
+def capacity_reference(metric, q: np.ndarray, planes, n, mask=None) -> PlaneReference:
+    """The exact reference of one path J cell: cosine multiplies the query
+    normalized in f32 and rounded to bf16, as the route does; manhattan and
+    euclidean score the f32 query against the rows in their difference
+    forms."""
+    qt = torch.from_numpy(q).to(card_device())
+    if metric == "cosine_similarity":
+        norm = torch.sqrt((qt * qt).sum(-1, keepdim=True))
+        qt = (qt / torch.where(norm == 0, torch.ones_like(norm), norm)).bfloat16().float()
+        return PlaneReference(qt, planes, n, TOP_K, lambda a, r: a @ r.T, _cosine_pair, mask)
+    pair = _manhattan_pair if metric == "manhattan_distance" else _euclidean_pair
+    return PlaneReference(qt, planes, n, TOP_K, _tiled(pair), pair, mask)
+
+
+class HostPeak:
+    """Largest resident set of this process while the block runs, sampled
+    every 5 ms from ``/proc/self/statm``; ``gib`` is the peak above the
+    resident set at entry."""
+
+    def __enter__(self):
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._base = self._rss()
+        self._peak = self._base
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self._peak = max(self._peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._peak = max(self._peak, self._rss())
+        self.gib = (self._peak - self._base) / (1 << 30)
+        return False
+
+
+def measured_build(label, build, card):
+    """Run ``build()`` (a plane build) and print its seconds, the peak host
+    memory above the start and the peak device memory above the start."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with HostPeak() as host:
+        out = build()
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    dev = (torch.cuda.max_memory_allocated() - base) / (1 << 30)
+    log(f"path J build {label}: {secs:.2f} s, peak host +{host.gib:.2f} GiB, "
+        f"peak device +{dev:.2f} GiB [{card}]")
+    return out
+
+
+def parent_plane_build(vectors: np.ndarray, n_pad: int) -> torch.Tensor:
+    """The unit-norm plane as the store built it before the chunked build:
+    one f32 host plane normalized whole, uploaded in f32 and cast to bf16 on
+    the card (timed beside the chunked build; the same bits)."""
+    n, d = vectors.shape
+    host = np.zeros((n_pad, d), dtype=np.float32)
+    host[:n] = vectors.astype(np.float32, copy=False)
+    norms = np.linalg.norm(host[:n], axis=1, keepdims=True)
+    norms[norms == 0] = 1.0
+    host[:n] /= norms
+    return torch.from_numpy(host).to(card_device()).to(torch.bfloat16).contiguous()
+
+
+def grouped_scan_bytes(b: int, n: int, d: int = DIM) -> int:
+    """Device bytes of one cosine scan by the grouped kernel route over an
+    (n, d) bf16 plane: the plane, the (b, n/128) group and (b, n/32)
+    subgroup maxes in f32, and the 32 bytes a group cell that stage 2's
+    int64 keys take at their peak (``ranking.exact_top_k``)."""
+    return n * d * 2 + b * (n // 128) * 4 + b * (n // SUB) * 4 + 32 * b * (n // 128)
+
+
+def capacity_breakdown(planes, masks, q: np.ndarray, wall: float, card: str, label: str) -> None:
+    """Device time of each stage of one planar cosine batch, plane by plane
+    (the functions the route calls, on the same inputs; one plane's
+    temporaries at a time), and of the merge, beside the batch's host-clock
+    time; the difference is host work and transfers."""
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops import metrics as M
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    b, k = q.shape[0], 16
+    qt = torch.from_numpy(q).to(planes[0].device)
+    qq = M._match_low_precision(M.normalize(qt), planes[0])
+    parts = {"normalize": cuda_ms(lambda: M._match_low_precision(M.normalize(qt), planes[0]), 3, 1)}
+    outs = []
+    for i, (plane, mask) in enumerate(zip(planes, masks)):
+        n = plane.shape[0]
+        extra = G.make_extra(n, mask, None, device=plane.device)
+        gm, sm = G.gmax_f_sub(qq, plane, extra, sub=SUB, dual=False)
+        sidx = G._select_subgroups(gm, sm, b, n, k, SUB)
+        cs = G._rescore(qq, plane, extra, sidx, SUB)
+        parts[f"plane{i}.stage1"] = cuda_ms(
+            lambda: G.gmax_f_sub(qq, plane, extra, sub=SUB, dual=False), 3, 1)
+        parts[f"plane{i}.stage2"] = cuda_ms(lambda: G._select_subgroups(gm, sm, b, n, k, SUB), 3, 1)
+        del gm, sm
+        parts[f"plane{i}.stage3"] = cuda_ms(lambda: G._rescore(qq, plane, extra, sidx, SUB), 3, 1)
+        parts[f"plane{i}.top_k"] = cuda_ms(lambda: G.finish_candidates(cs, sidx, b, k, SUB), 3, 1)
+        outs.append(G.finish_candidates(cs, sidx, b, k, SUB))
+        del extra, sidx, cs
+        torch.cuda.empty_cache()
+    offsets = np.cumsum([0] + [p.shape[0] for p in planes[:-1]]).tolist()
+    vals, idx = [o[0] for o in outs], [o[1] for o in outs]
+    parts["merge"] = cuda_ms(lambda: R._merge_plane_topk(vals, idx, k, offsets), 3, 1)
+    log_breakdown(f"path J {label} b={b}", parts, wall, card)
+    stage1 = sum(ms for name, ms in parts.items() if name.endswith("stage1"))
+    bounds = [scan_bound_ms(b, p.shape[0], DIM, p.shape[0] // SUB) for p in planes]
+    bound = sum(ms for ms, _ in bounds)
+    log(f"path J {label} b={b}: stage 1 over all planes {stage1:.3f} ms, bound {bound:.3f} ms "
+        f"({bounds[0][1]}), bound/ms={bound / stage1:.3f} [{card}]")
+
+
+def capacity_cell(db, q, label, card, metric="cosine_similarity", **kw):
+    """Time one path J cell (``run_batch``) and print its peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = run_batch(db, q, f"path J {label}", card, metric=metric, **kw)
+    peak = torch.cuda.max_memory_allocated() / (1 << 30)
+    log(f"path J {label}: b={q.shape[0]} peak device memory {peak:.2f} GiB [{card}]")
+    return ms, peak
+
+
+def capacity_counted(db, q, label, metric, G, L, expect, **kw):
+    """One counted call through the entry point: every launch counter set
+    to 0 just before it and read just after; ``expect`` is {kernel:
+    launches}, every other kernel must stay at 0, and every stage-1 launch
+    must have run the ``wgmma`` variant. Returns (ids, scores, launches)."""
+    zero_launches(G)
+    zero_launches(L)
+    ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric=metric, **kw)
+    launches = {
+        key: v for counter in (G.LAUNCHES, L.LAUNCHES) for key, v in counter.items()
+        if key in expect or v
+    }
+    if launches != expect:
+        raise AssertionError(f"path J {label}: launched {launches}, expected {expect}")
+    check_variant(G, f"path J {label}")
+    log(f"path J {label}: stage-1 launches {json.dumps(launches)}")
+    return ids, vals, launches
+
+
+def path_capacity(kernels, seed: int, card: str) -> None:
+    """Path J: the planar capacity route on one card, at 2^24 x 384."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.core.store import VectorStore
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops import l1 as L
+
+    dev = card_device()
+    t0 = time.perf_counter()
+    n = capacity_rows()
+    corpus = make_capacity_corpus(seed, n)
+    log(f"path J corpus: {n} x {DIM} float16 drawn on the card, {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    db = HyperDB(documents=[{}] * n, vectors=corpus, fp_precision="float16")
+    store = db._store
+    dv = store.device_view(db.source_indices)
+    n_pad = dv["n_pad"]
+    bounds = store.plane_bounds(n_pad)
+    planes_n = len(bounds) - 1
+    log(f"path J db: {time.perf_counter() - t:.1f} s; n_pad {n_pad}, plane_rows "
+        f"{CONFIG.plane_rows}, planes at {bounds}")
+    if planes_n < 2 or bounds[1] != J_PLANE:
+        raise AssertionError(f"path J: expected planes of {J_PLANE} rows, got {bounds}")
+    planes = measured_build(
+        f"split unit-norm planes ({planes_n} x {bounds[1]} rows)",
+        lambda: dv["rows_norm_planes"], card,
+    )
+    mono_reckoned = n_pad * DIM * 6 / (1 << 30)
+    log(f"path J build of the parent's one plane (not run at this size): an f32 host plane and "
+        f"its norm temporary, {n_pad * DIM * 8 / (1 << 30):.1f} GiB of host, and the f32 upload "
+        f"beside the bf16 plane, {mono_reckoned:.1f} GiB of device")
+    small = min(1 << 20, n)
+    cut = VectorStore(np.float16, device=dev)
+    new = measured_build(f"one plane of {small} rows, chunked",
+                         lambda: cut._build_plane(corpus, 0, small, small, True), card)
+    old = measured_build(f"one plane of {small} rows, the parent's build",
+                         lambda: parent_plane_build(corpus[:small], small), card)
+    if not torch.equal(new.view(torch.int16), old.view(torch.int16)):
+        raise AssertionError("path J: the chunked plane build differs from the parent's")
+    del new, old, cut
+    torch.cuda.empty_cache()
+
+    # the kernels against their plain versions at one plane's shape
+    qp = make_queries(seed + 91, 512, corpus)
+    qq = torch.from_numpy(qp).to(dev)
+    qq = (qq / torch.sqrt((qq * qq).sum(-1, keepdim=True))).bfloat16()
+    extra = G.make_extra(bounds[1], dv["plane_row_valid"][0], None, device=qq.device)
+    gm, sm = G.gmax_f_sub(qq, planes[0], extra, sub=SUB, dual=False)
+    pgm, psm = G.gmax_f_sub_plain(qq, planes[0], extra, sub=SUB)
+    err = max(max_err(gm, pgm), max_err(sm, psm))
+    if err > ATOL:
+        raise AssertionError(f"path J: gmax_f_sub off its plain version by {err:.3g} at one plane")
+    log(f"path J kernel gmax_f_sub (512, {bounds[1]}, {DIM}) against its plain version: "
+        f"max_abs_err={err:.3g}")
+    del gm, sm, pgm, psm, extra, qq
+    torch.cuda.empty_cache()
+
+    path_launches = {}
+
+    def counted(label, q, metric, expect, **kw):
+        ids, vals, launches = capacity_counted(db, q, label, metric, G, L, expect, **kw)
+        for key, v in launches.items():
+            path_launches[key] = path_launches.get(key, 0) + v
+        return ids, vals
+
+    # J1-J3: cosine through the planar route, gmax_f_sub once per plane
+    q512 = make_queries(seed + 92, 512, corpus)
+    q16k = make_queries(seed + 93, J_BIG_BATCH, corpus)
+    expect = {"gmax_f_sub": planes_n}
+    results = {}
+    for label, q, kw, mask in (
+        ("cosine b=512", q512, {}, None),
+        (f"cosine b={J_BIG_BATCH}", q16k, {}, None),
+        ("cosine b=512 filter", q512, {"filters": [("skip_doc", 10)]}, "skip"),
+    ):
+        ids, vals = counted(label, q, "cosine_similarity", expect, **kw)
+        live = None
+        if mask:
+            live = torch.ones(n_pad, dtype=torch.bool, device=dev)
+            live[:10] = False
+        head = [17, J_PLANE + 5] if mask else [4, 17, J_PLANE + 5]
+        if list(ids[0, : len(head)]) != head:
+            raise AssertionError(f"path J {label}: planted copies not first in id order: {ids[0, :3]}")
+        ref = capacity_reference("cosine_similarity", q[:512], planes, n, mask=live)
+        swaps, err = check_top_k(f"path J {label}", ids[:512], vals[:512], ref, ATOL)
+        log(f"path J {label}: ids tie-aware equal to the exact reference "
+            f"({'first 512 queries, ' if q.shape[0] > 512 else ''}{swaps} tied swaps, "
+            f"score err {err:.3g}); the cross-plane copy ranks after its original")
+        results[label] = (ids, vals)
+        del ref
+        wall, _ = capacity_cell(db, q, label, card, **kw)
+        if not mask:
+            capacity_breakdown(planes, dv["plane_row_valid"], q, wall, card, "cosine")
+
+    # serialized against async at b = 16384, then one plane against planes
+    serial = CONFIG.planar_serial_bytes
+    try:
+        for cap in (0, serial):
+            CONFIG.planar_serial_bytes = cap
+            capacity_cell(db, q16k, f"cosine planar_serial_bytes={cap}", card)
+    finally:
+        CONFIG.planar_serial_bytes = serial
+    dv.pop("rows_norm_planes")
+    del planes
+    torch.cuda.empty_cache()
+    rows_cap = CONFIG.plane_rows
+    CONFIG.plane_rows = 0
+    try:
+        measured_build(f"one unit-norm plane ({n_pad} rows, chunked)", lambda: dv["rows_norm"], card)
+        ids, vals = counted("one plane cosine b=512", q512, "cosine_similarity", {"gmax_f_sub": 1})
+        pi, pv = results["cosine b=512"]
+        differ = ids != pi
+        gap = float(np.abs(vals - pv).max())
+        if gap > ATOL or (differ.any() and float(np.abs(vals - pv)[differ].max()) > ATOL):
+            raise AssertionError(f"path J: one plane and planes differ beyond ties ({gap:.3g})")
+        log(f"path J one plane against planes, cosine b=512: {int(differ.sum())} ids differ "
+            f"(ties), max score difference {gap:.3g}")
+        capacity_cell(db, q512, "one plane cosine b=512", card)
+        big = J_BIG_BATCH
+        need = torch.cuda.memory_allocated() + grouped_scan_bytes(big, n_pad) - n_pad * DIM * 2
+        total = torch.cuda.get_device_properties(0).total_memory
+        log(f"path J one plane cosine b={big} reckoned: {need / (1 << 30):.1f} GiB with the "
+            f"plane resident (planes: {grouped_scan_bytes(big, bounds[1]) / (1 << 30):.1f} GiB "
+            f"a plane's scan beside the other planes), of the card's {total / (1 << 30):.1f} GiB")
+        if need <= 0.9 * total:
+            capacity_cell(db, q16k, f"one plane cosine b={big}", card)
+        else:
+            log(f"path J one plane cosine b={big}: not run (does not fit)")
+    finally:
+        CONFIG.plane_rows = rows_cap
+    dv.pop("rows_norm")
+    del q16k, results
+    torch.cuda.empty_cache()
+
+    # J4-J5: manhattan (an L1 kernel once per plane) and euclidean (the plain
+    # per-plane scores, no kernel) over the raw planes
+    raw = measured_build(f"split raw planes ({planes_n} x {bounds[1]} rows)",
+                         lambda: dv["rows_planes"], card)
+    l1_expect = {}
+    for a, b in zip(bounds, bounds[1:]):
+        name = "gmax_l1t" if CONFIG.pallas_l1t and (b - a) * DIM * 2 <= L._L1T_MAX_BYTES else "gmax_l1"
+        l1_expect[name] = l1_expect.get(name, 0) + 1
+    log(f"path J manhattan: planes of {[b - a for a, b in zip(bounds, bounds[1:])]} rows against "
+        f"the {L._L1T_MAX_BYTES / (1 << 30):.1f} GiB cap of the transposed copy: {l1_expect}")
+    q64 = make_queries(seed + 94, 64, corpus)
+    q32 = torch.from_numpy(q64).to(dev)
+    extra = G.make_extra(bounds[1], dv["plane_row_valid"][0], None, device=q32.device)
+    err = l1_err("path J gmax_l1", L.gmax_l1(q32, raw[0], extra), L.gmax_l1_plain(q32, raw[0], extra))
+    log(f"path J kernel gmax_l1 (64, {bounds[1]}, {DIM}) against its plain version: max_abs_err={err:.3g}")
+    del q32, extra
+    eu_bytes = bounds[1] * DIM * 8 * 2 + 64 * bounds[1] * 8 * 2
+    log(f"path J euclidean b=64 reckoned device bytes a plane: an f64 copy of the plane and its "
+        f"square, and two (64, {bounds[1]}) f64 terms: {eu_bytes / (1 << 30):.1f} GiB, beside "
+        f"{sum(p.numel() * 2 for p in raw) / (1 << 30):.1f} GiB of planes")
+    for label, metric, expect, tol in (
+        ("manhattan b=64", "manhattan_distance", l1_expect, MANHATTAN_ATOL),
+        ("euclidean b=64", "euclidean_metric", {}, J_EUCLIDEAN_ATOL),
+    ):
+        ids, vals = counted(label, q64, metric, expect)
+        if list(ids[0, :3]) != [4, 17, J_PLANE + 5]:
+            raise AssertionError(f"path J {label}: planted copies not first in id order: {ids[0, :3]}")
+        ref = capacity_reference(metric, q64, raw, n)
+        swaps, err = check_top_k(f"path J {label}", ids, vals, ref, tol)
+        log(f"path J {label}: ids tie-aware equal to the exact reference ({swaps} tied swaps, "
+            f"score err {err:.3g}, tol {tol})")
+        del ref
+        capacity_cell(db, q64, label, card, metric=metric)
+    for key, v in path_launches.items():
+        kernels[key]["launches"] += v
+    log(f"path J launches: {json.dumps(path_launches)}")
+    del raw, dv, db, store, corpus
+    torch.cuda.empty_cache()
+    log(f"path J: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3514,6 +3989,9 @@ def main() -> int:
 
     # 15. path I: training, then the fine-tuned encoder serving
     path_training(kernels, args.seed, card)
+
+    # 16. path J: the planar capacity route at 2^24 rows
+    path_capacity(kernels, args.seed, card)
 
     # 14. path H4: the multi-process launchers
     t = time.perf_counter()

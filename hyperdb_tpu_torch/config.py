@@ -63,6 +63,17 @@ class EngineConfig:
     # with the group maxes taken as a max over each run outside the kernel
     # (bitwise identical — max is exact).
     pallas_sub_dual: int = _env_int("HYPERDB_PALLAS_SUB_DUAL", 0)
+    # Unchunked corpora of more padded rows than this keep their float
+    # device planes as SEPARATE planes of at most this many rows (a small
+    # remainder folds into the last; core/store.plane_bounds): the engine
+    # ranks each plane with the router and merges the per-plane winners
+    # exactly (ops/ranking.rank_top_k_planar), so a scan's temporaries are
+    # sized by a plane, not by the corpus. 0 disables (one plane at any n).
+    plane_rows: int = _env_int("HYPERDB_PLANE_ROWS", 1 << 23)
+    # From this many bytes of planes on, the planar route reads each
+    # plane's (B, k) winners to the host before it ranks the next plane.
+    # 0 disables (never read back early).
+    planar_serial_bytes: int = _env_int("HYPERDB_PLANAR_SERIAL_BYTES", 8 << 30)
     # Row count from which a corpus builds an IVF index (index/ivf.py) and
     # routes eligible single queries through its candidate pre-filter.
     # Opt-in (1<<62 disables), as in the JAX package.

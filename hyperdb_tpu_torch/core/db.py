@@ -1266,13 +1266,17 @@ class HyperDB:
 
     def _preload_into_memory(self) -> None:
         """Build every device plane serving can touch now (on the card),
-        instead of at the first query: the float planes (cosine and raw)
-        and, for the int8 representations, the int8 planes."""
+        instead of at the first query: the float planes (cosine and raw;
+        split where the corpus is planar, which is all the engine reads
+        then) and, for the int8 representations, the int8 planes."""
         if self._store.num_rows == 0 or not self.source_indices:
             return
         dv = self._store.device_view(self.source_indices)
         if self._store.precision != "int8-pure":
-            for key in ("rows_norm", "rows"):
+            keys = ("rows_norm", "rows")
+            if self._store.is_planar(dv["n_pad"]):
+                keys = ("rows_norm_planes", "rows_planes")
+            for key in keys:
                 dv[key]  # the lazy view uploads a plane on first access
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -14,6 +14,10 @@ padded device view:
   ``"int8"``, ``"int8-pure"``)
 - ``rows_bin`` / ``row_bin_sum`` (:meth:`VectorStore.binary_view`) and
   ``rows_pearson`` (:meth:`VectorStore.pearson_view`), built on first use
+- ``rows_planes`` / ``rows_norm_planes``: the two float planes split at
+  :meth:`VectorStore.plane_bounds` (a capacity corpus, past
+  ``CONFIG.plane_rows``), and ``plane_row_valid``, ``row_valid`` split the
+  same way
 
 Every plane is computed on the host in NumPy exactly as the JAX package
 computes it, so the two packages' planes are bit-equal. Padding snaps N to a small set of bucket sizes (both packages scan the
@@ -22,6 +26,9 @@ planes — the dtype the stage-1 kernels take — and float64 masters f32.
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,6 +44,27 @@ def bucket_size(n: int, minimum: int = 8) -> int:
     return -(-n // step) * step
 
 
+# Elements per chunk of a host pass over the master (64 MiB of f32
+# temporaries per chunk in flight).
+_BUILD_CHUNK_ELEMS = 1 << 24
+
+
+def _over_row_chunks(lo: int, hi: int, d: int, fn) -> None:
+    """Call ``fn(s, e)`` on consecutive row ranges covering [lo, hi) of
+    ``_BUILD_CHUNK_ELEMS`` elements each, on up to ``os.cpu_count()``
+    threads (NumPy's and torch's element loops release the GIL). Each range
+    is computed on its own, so the result is the same on any number of
+    threads; an exception in any call is raised here."""
+    step = max(1, _BUILD_CHUNK_ELEMS // max(1, d))
+    starts = range(lo, hi, step)
+    if len(starts) <= 1:
+        for s in starts:
+            fn(s, hi)
+        return
+    with ThreadPoolExecutor(max_workers=min(len(starts), os.cpu_count() or 1)) as pool:
+        list(pool.map(lambda s: fn(s, min(hi, s + step)), starts))
+
+
 _DEVICE_DTYPES = {
     # Rounding an f16 significand (10 bits) to bf16 (7 bits) moves scores at
     # the 3rd decimal digit; scoring accumulates in f32 either way.
@@ -48,11 +76,13 @@ _DEVICE_DTYPES = {
 
 class _LazyDeviceView(dict):
     """Device view whose full-corpus float planes upload on first access
-    (``dv["rows"]`` / ``dv["rows_norm"]``); a cosine-serving DB only ever
-    touches ``rows_norm``. The view snapshots the host master it was built
-    from (every mutation replaces ``store.vectors``)."""
+    (``dv["rows"]`` / ``dv["rows_norm"]``, or split: ``dv["rows_planes"]`` /
+    ``dv["rows_norm_planes"]``); a cosine-serving DB only ever touches the
+    unit-norm one. The view snapshots the host master it was built from
+    (every mutation replaces ``store.vectors``)."""
 
     _LAZY_KEYS = ("rows", "rows_norm")
+    _LAZY_PLANE_KEYS = ("rows_planes", "rows_norm_planes")
 
     def __init__(self, store: "VectorStore", vectors):
         super().__init__()
@@ -61,10 +91,18 @@ class _LazyDeviceView(dict):
 
     def __missing__(self, key):
         if key in self._LAZY_KEYS:
-            arr = self._store._materialize_plane(key, self["n_pad"], self._vectors)
-            self[key] = arr
-            return arr
-        raise KeyError(key)
+            value = self._store._materialize_plane(key, self["n_pad"], self._vectors)
+        elif key in self._LAZY_PLANE_KEYS:
+            value = self._store._materialize_split_planes(
+                key.removesuffix("_planes"), self["n_pad"], self._vectors
+            )
+        elif key == "plane_row_valid":
+            bounds = self._store.plane_bounds(self["n_pad"])
+            value = tuple(self["row_valid"][a:b] for a, b in zip(bounds, bounds[1:]))
+        else:
+            raise KeyError(key)
+        self[key] = value
+        return value
 
 
 class VectorStore:
@@ -77,7 +115,9 @@ class VectorStore:
       - 'int8-pure' — int8 only: half the device memory of bf16; dot and
                       cosine only, approximate (quantized) scores
 
-    Every corpus is one device plane, however many rows it has."""
+    A corpus past ``CONFIG.plane_rows`` padded rows also has its float
+    planes split (:meth:`plane_bounds`), which the engine's planar branch
+    ranks plane by plane."""
 
     def __init__(self, fp_dtype, precision: str = "auto", device="cpu"):
         self.fp_dtype = np.dtype(fp_dtype)
@@ -166,27 +206,81 @@ class VectorStore:
         return host, host_norm
 
     def _upload_plane(self, host: np.ndarray, dtype=None):
-        """An f32 host plane onto the device, cast there to the plane dtype
-        (round to nearest even, as ml_dtypes does on the host)."""
+        """An f32 host plane onto the device, cast to the plane dtype on the
+        host first (torch's CPU cast rounds to nearest even, as ml_dtypes
+        does), so no f32 copy of the plane reaches the device."""
         if dtype is None:
             dtype = _DEVICE_DTYPES.get(self.fp_dtype, torch.float32)
-        return torch.from_numpy(host).to(self.device).to(dtype).contiguous()
+        return torch.from_numpy(host).to(dtype).to(self.device).contiguous()
+
+    def _build_plane(self, vectors: np.ndarray, lo: int, hi: int, rows: int,
+                     normalize: bool) -> torch.Tensor:
+        """Master rows [lo, hi) as one (rows, d) device plane, zero past
+        ``hi - lo`` and unit-norm where ``normalize``.
+
+        Built a chunk of rows at a time (:func:`_over_row_chunks`): each
+        chunk is cast to f32, normalized as the JAX store normalizes its
+        whole f32 plane (the norm and the division are per row), rounded to
+        the plane dtype on the host and copied into the plane. So the
+        planes' bits are the JAX package's, and neither side ever holds an
+        f32 copy of a plane."""
+        d = vectors.shape[1]
+        dtype = _DEVICE_DTYPES.get(self.fp_dtype, torch.float32)
+        plane = torch.zeros((rows, d), dtype=dtype, device=self.device)
+
+        def build(s: int, e: int) -> None:
+            chunk = vectors[s:e].astype(np.float32)  # a copy: normalized in place
+            if normalize:
+                norms = np.linalg.norm(chunk, axis=1, keepdims=True)
+                norms[norms == 0] = 1.0
+                chunk /= norms
+            plane[s - lo : e - lo].copy_(torch.from_numpy(chunk).to(dtype))
+
+        _over_row_chunks(lo, hi, d, build)
+        return plane
 
     def _materialize_plane(self, key: str, n_pad: int, vectors=None):
-        """Upload ONE plane ('rows'/'rows_norm'): one (n_pad, d) f32 host
-        temp, normalized in place exactly as the JAX package does it on the
-        host."""
+        """Upload ONE plane ('rows'/'rows_norm') of all n_pad rows."""
         if self.precision == "int8-pure":
             raise KeyError(key)  # int8-pure never holds float planes
         if vectors is None:
             vectors = self.vectors
+        return self._build_plane(vectors, 0, vectors.shape[0], n_pad, key == "rows_norm")
+
+    @staticmethod
+    def plane_bounds(n_pad: int) -> list[int]:
+        """Row boundaries of the capacity split, ``[0, ..., n_pad]``: planes
+        of ``CONFIG.plane_rows`` rows, a remainder of under an eighth of
+        that folded into the last. One pair means "not planar"."""
+        from hyperdb_tpu_torch.config import CONFIG
+
+        cap = CONFIG.plane_rows
+        if cap <= 0 or n_pad <= cap:
+            return [0, n_pad]
+        bounds = list(range(0, n_pad, cap)) + [n_pad]
+        if bounds[-1] - bounds[-2] < cap // 8:
+            del bounds[-2]
+        return bounds
+
+    def is_planar(self, n_pad: int) -> bool:
+        """True when this corpus' float device planes are split."""
+        return len(self.plane_bounds(n_pad)) > 2
+
+    def _materialize_split_planes(self, key: str, n_pad: int, vectors=None):
+        """One float plane ('rows'/'rows_norm') as a tuple of device planes
+        at :meth:`plane_bounds`, each built from its own window of the
+        master: the peak temporaries are those of a chunk, and the planes
+        concatenate to :meth:`_materialize_plane`'s bit for bit."""
+        if self.precision == "int8-pure":
+            raise KeyError(key)
+        if vectors is None:
+            vectors = self.vectors
         n = vectors.shape[0]
-        host = self._padded_raw(vectors, n_pad)
-        if key == "rows_norm":
-            norms = np.linalg.norm(host[:n], axis=1, keepdims=True)
-            norms[norms == 0] = 1.0
-            host[:n] /= norms
-        return self._upload_plane(host)
+        bounds = self.plane_bounds(n_pad)
+        return tuple(
+            self._build_plane(vectors, a, min(b, n), b - a, key == "rows_norm")
+            for a, b in zip(bounds, bounds[1:])
+        )
 
     def device_view(self, source_indices) -> dict:
         """Padded device arrays for the current corpus; cached until the next
@@ -201,10 +295,12 @@ class VectorStore:
         n_pad = bucket_size(n)
 
         row_sq = np.zeros(n_pad, dtype=np.float32)
-        step = max(1, (64 << 20) // max(1, d))
-        for s in range(0, n, step):
-            chunk = self.vectors[s : s + step].astype(np.float32, copy=False)
-            row_sq[s : s + chunk.shape[0]] = np.sum(chunk * chunk, axis=1)
+
+        def squares(s: int, e: int) -> None:
+            chunk = self.vectors[s:e].astype(np.float32, copy=False)
+            row_sq[s:e] = np.sum(chunk * chunk, axis=1)
+
+        _over_row_chunks(0, n, d, squares)
 
         row_valid = np.zeros(n_pad, dtype=bool)
         row_valid[:n] = True

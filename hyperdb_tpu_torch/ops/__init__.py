@@ -1,8 +1,6 @@
 """Scoring, ranking and the CUDA stage-1 kernels.
 
-Exports the names of the JAX package's ``hyperdb_tpu.ops`` in its order,
-but for ``rank_top_k_planar``: the planar capacity route (ROADMAP queue 1,
-item 8) is not ported, and the port scans every corpus as one plane.
+Exports the names of the JAX package's ``hyperdb_tpu.ops`` in its order.
 Importing this package builds no kernel.
 """
 
@@ -27,6 +25,7 @@ from hyperdb_tpu_torch.ops.ranking import (
     rank_top_k,
     rank_top_k_grouped,
     rank_top_k_grouped_metric,
+    rank_top_k_planar,
     ranking_algorithm_sort,
     recency_scores,
 )
@@ -50,6 +49,7 @@ __all__ = [
     "rank_gathered",
     "rank_top_k",
     "rank_top_k_grouped",
+    "rank_top_k_planar",
     "ranking_algorithm_sort",
     "recency_scores",
 ]

@@ -1,15 +1,17 @@
 """Scoring + recency + mask + exact top-k, as tensor code around the kernels.
 
-Counterpart of ``hyperdb_tpu/ops/ranking.py`` for the routes ported so far:
-the router :func:`rank_top_k`, the plain grouped form
+Counterpart of ``hyperdb_tpu/ops/ranking.py``: the router
+:func:`rank_top_k`, its planar form :func:`rank_top_k_planar` (a corpus
+stored as separate planes), the plain grouped form
 :func:`rank_top_k_grouped`, the grouped euclidean/hamming/jaccard form
 :func:`rank_top_k_grouped_metric`, the streamed manhattan scan
 :func:`rank_top_k_manhattan_stream`, the chunk-aware document ranking
 :func:`rank_docs_top_k`, the materialising fallback over the seven
 metrics, the IVF candidate scan :func:`rank_gathered`, and the reference's
-list-level :func:`ranking_algorithm_sort`. Batches at or above ``CONFIG.pallas_gmax_f_min_batch`` over a bf16
-plane go to the stage-1 kernels (``ops/gmax.py``); manhattan batches at or
-above ``CONFIG.pallas_l1_min_batch`` to the L1 kernels (``ops/l1.py``).
+list-level :func:`ranking_algorithm_sort`. Batches at or above
+``CONFIG.pallas_gmax_f_min_batch`` over a bf16 plane go to the stage-1
+kernels (``ops/gmax.py``); manhattan batches at or above
+``CONFIG.pallas_l1_min_batch`` to the L1 kernels (``ops/l1.py``).
 
 Semantics kept from the reference ranker (ranking_algorithm.py:149-204):
 NaN scores become -inf before recency is added; masks act as an additive
@@ -441,6 +443,75 @@ def rank_top_k(
     if use_grouped:
         return exact_top_k_grouped(s, k, group=group)
     return exact_top_k(s, k)
+
+
+def _merge_plane_topk(vals_parts, idx_parts, k: int, offsets):
+    """Merge per-plane (B, k_i) winners into the global (B, k) top-k.
+
+    ``offsets[i]`` is the global row id of plane i's row 0. The planes
+    concatenate in plane order and :func:`exact_top_k` prefers the lower
+    position, so on equal values the earlier plane's entry wins: the LOWER
+    global id, which one top-k over the whole corpus would pick."""
+    vals = torch.cat(vals_parts, dim=1)
+    idxs = torch.cat([p + off for p, off in zip(idx_parts, offsets)], dim=1)
+    mv, mi = exact_top_k(vals, k)
+    return mv, torch.gather(idxs, 1, mi)
+
+
+def rank_top_k_planar(
+    queries,
+    planes,
+    k: int,
+    metric: str = "cosine_similarity",
+    row_masks=None,
+    recencies=None,
+    prenormalized: bool = False,
+):
+    """Exact top-k over a corpus stored as SEPARATE device planes
+    (``ranking.rank_top_k_planar`` in the JAX package): each (N_i, d) plane
+    is ranked by :func:`rank_top_k` (so by its kernel routes), and the
+    per-plane winners merge through one (B, sum k_i) top-k.
+
+    Every metric scores a row independently of the rest of the corpus, so
+    the global top-k lies in the union of the per-plane top-k and the merge
+    is exact; ties go to the lowest global id (:func:`_merge_plane_topk`).
+    From ``CONFIG.planar_serial_bytes`` bytes of planes on, each plane's
+    (B, k) winners are read to the host before the next plane is ranked.
+
+    Args mirror :func:`rank_top_k`: ``planes`` is a sequence of (N_i, d)
+    tensors; ``row_masks`` / ``recencies`` are optional sequences aligned
+    with it. Returns (values, indices), indices global over the plane
+    concatenation.
+    """
+    planes = list(planes)
+    if not planes:
+        raise ValueError("rank_top_k_planar: need at least one plane")
+    if len(planes) == 1:
+        return rank_top_k(
+            queries, planes[0], k=min(k, int(planes[0].shape[0])), metric=metric,
+            row_mask=None if row_masks is None else row_masks[0],
+            recency=None if recencies is None else recencies[0],
+            prenormalized=prenormalized,
+        )
+    cap = CONFIG.planar_serial_bytes
+    serialize = 0 < cap <= sum(p.numel() * p.element_size() for p in planes)
+    vals_parts, idx_parts, offsets = [], [], []
+    offset = 0
+    for i, plane in enumerate(planes):
+        v, idx = rank_top_k(
+            queries, plane, k=min(k, int(plane.shape[0])), metric=metric,
+            row_mask=None if row_masks is None else row_masks[i],
+            recency=None if recencies is None else recencies[i],
+            prenormalized=prenormalized,
+        )
+        if serialize and i + 1 < len(planes):
+            idx.cpu()  # this plane's work ends before the next plane's starts
+        vals_parts.append(v)
+        idx_parts.append(idx)
+        offsets.append(offset)
+        offset += int(plane.shape[0])
+    k_eff = min(k, sum(int(p.shape[1]) for p in idx_parts))
+    return _merge_plane_topk(vals_parts, idx_parts, k_eff, offsets)
 
 
 def rank_docs_top_k(

@@ -4,10 +4,11 @@ Counterpart of ``hyperdb_tpu/query/engine.py``: filters become host masks,
 then one ranking call runs on the store's device (score + NaN scrub + mask
 + recency + top-k). Served: unchunked corpora (one row per document)
 on float, int8 and int8-pure planes, with the grouped, kernel and streamed
-routes of all seven metrics; chunked corpora (several rows per document,
-ranked at document level); the key-filter override branch; the tiny-corpus
-host path; and text queries, embedded on the host path or kept on the
-device as a query block. With an IVF index (``index/ivf.py``) a single
+routes of all seven metrics, and a capacity corpus split into float planes
+(``CONFIG.plane_rows``) plane by plane; chunked corpora (several rows per
+document, ranked at document level); the key-filter override branch; the
+tiny-corpus host path; and text queries, embedded on the host path or kept
+on the device as a query block. With an IVF index (``index/ivf.py``) a single
 query is pre-filtered to its probed candidates and scored on them alone
 (``ranking.rank_gathered``), and a batch can share one probe frontier
 (:func:`_rank_block_ivf`); with a projscan index an int8-pure scan runs as
@@ -288,7 +289,7 @@ def execute_query(
         )
         return []
 
-    surviving = int(mask.sum())
+    surviving = int(np.count_nonzero(mask))
     if top_k > surviving:
         log.info(
             f"Warning: top_k ({top_k}) is greater than the number of filtered "
@@ -304,8 +305,10 @@ def execute_query(
             if int((src == int(np.flatnonzero(mask)[0])).sum()) == 1:
                 log.info("Info: Only one document left.")
 
-    recency = handle_timestamps(
-        db, recency_bias, timestamp_key, np.flatnonzero(mask)
+    recency = (
+        None
+        if recency_bias == 0
+        else handle_timestamps(db, recency_bias, timestamp_key, np.flatnonzero(mask))
     )
 
     with db.stats.phase("query.rank"):
@@ -451,9 +454,13 @@ def execute_query_batch_arrays(
             np.zeros((n_out, 0), dtype=np.float32),
         )
 
-    k = min(top_k, int(mask.sum()))
-    recency = handle_timestamps(
-        db, recency_bias, timestamp_key, np.flatnonzero(mask)
+    k = min(top_k, int(np.count_nonzero(mask)))
+    # the surviving ids only where recency needs them, as the JAX engine
+    # does: an index array as long as the corpus, for every batch
+    recency = (
+        None
+        if recency_bias == 0
+        else handle_timestamps(db, recency_bias, timestamp_key, np.flatnonzero(mask))
     )
     doc_ids = scores_out = None
     if (
@@ -705,6 +712,27 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k, cand_rows=N
                 f"device_precision='int8-pure' supports only dot_product and "
                 f"cosine_similarity on the device scan (got '{metric}'); use "
                 "device_precision='int8' or 'auto' for other metrics."
+            )
+        elif store.is_planar(n_pad):
+            # Capacity corpus (past CONFIG.plane_rows): the float plane lives
+            # as separate planes, each ranked by the router, the winners
+            # merged exactly. Placed where the JAX engine has it, so every
+            # metric takes the JAX package's planar route (euclidean,
+            # hamming, jaccard and pearson the plain per-plane scores).
+            spans = list(zip(store.plane_bounds(n_pad), store.plane_bounds(n_pad)[1:]))
+            if mask.all():
+                masks = dv["plane_row_valid"]
+            else:
+                masks = [row_mask_dev[a:b] for a, b in spans]
+            recs = None if rec_pad is None else [rec_pad[a:b] for a, b in spans]
+            vals, idx = _ranking.rank_top_k_planar(
+                q,
+                dv["rows_norm_planes" if prenorm else "rows_planes"],
+                k=k_eff,
+                metric=metric,
+                row_masks=masks,
+                recencies=recs,
+                prenormalized=prenorm,
             )
         elif metric in _ranking.GROUPED_METRICS and _grouped_group(n_pad, batch):
             # euclidean/hamming/jaccard ride the grouped epilogue routes:

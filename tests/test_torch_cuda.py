@@ -144,6 +144,56 @@ def test_db_on_card_matches_cpu(dev, monkeypatch, sub):
     assert (np.abs(gv - pv)[diff] <= ATOL).all()
 
 
+@pytest.mark.parametrize("metric,b,kernels", [
+    ("dot_product", 600, {"gmax_f_sub": 4}),
+    ("manhattan_distance", 64, {"gmax_l1t": 4}),
+    ("euclidean_metric", 64, {}),
+])
+def test_planar_db_on_card_matches_one_plane_and_cpu(dev, monkeypatch, metric, b, kernels):
+    """A planar DB on the card (``plane_rows`` lowered: four planes of 4096
+    rows, a duplicate pair across two of them) launches its per-plane kernel
+    once per plane (euclidean: the plain per-plane scores, no kernel), and
+    answers as the planar DB on the CPU and, for dot and manhattan, as the
+    same DB with one plane on the card (one-plane euclidean takes the
+    grouped route, which multiplies a bf16-rounded query, as in the JAX
+    package): scores within 1e-5 relative plus ATOL, ids equal but for
+    near-ties (f32 sums in other orders), the cross-plane copy second
+    after its original. Dot over a float16 query wire takes cosine's kernel
+    route without its f32 query normalization, whose sum order differs
+    between the card and the CPU and can flip a query element's bf16
+    rounding (1e-5 a flip)."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    monkeypatch.setattr(CONFIG, "plane_rows", 4096)
+    rng = np.random.default_rng(13)
+    v = (rng.standard_normal((16384, 384)) / np.sqrt(384)).astype(np.float16)
+    v[9000] = v[4]
+    docs = list(range(16384))
+    q = (rng.standard_normal((b, 384)) / np.sqrt(384)).astype(np.float32)
+    q[0] = v[4]
+    if metric == "dot_product":
+        q = q.astype(np.float16)  # a low-precision wire: dot's kernel route takes it
+    card = HyperDB(docs, v, fp_precision="float16", device=dev)
+    cpu = HyperDB(docs, v, fp_precision="float16", device="cpu")
+    assert card._store.is_planar(16384)
+    before = {**G.LAUNCHES, **L.LAUNCHES}
+    gi, gv = card.query_batch_arrays(q, top_k=10, metric=metric)
+    after = {**G.LAUNCHES, **L.LAUNCHES}
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == kernels
+    assert list(gi[0, :2]) == [4, 9000]
+    if metric != "euclidean_metric":
+        monkeypatch.setattr(CONFIG, "plane_rows", 0)
+        oi, ov = card.query_batch_arrays(q, top_k=10, metric=metric)
+        np.testing.assert_allclose(gv, ov, rtol=1e-5, atol=ATOL)
+        assert (gi == oi).mean() > 0.99
+        monkeypatch.setattr(CONFIG, "plane_rows", 4096)
+    pi, pv = cpu.query_batch_arrays(q, top_k=10, metric=metric)
+    np.testing.assert_allclose(gv, pv, rtol=1e-5, atol=ATOL)
+    assert (gi == pi).mean() > 0.99
+
+
 @pytest.mark.parametrize("b,n,d", [(128, 4096, 384), (77, 2048, 128), (300, 1024, 48), (8, 256, 1024)])
 def test_gmax_int8_kernel_equals_plain(dev, b, n, d):
     rng = np.random.default_rng(b)

@@ -219,16 +219,21 @@ def test_not_ported_branches_raise(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("metric", METRICS)
 def test_split_plane_corpus_runs_as_one_plane(monkeypatch, metric):
-    """A corpus the JAX package splits into several device planes (its
-    planar capacity route) runs as one plane in the port, with the same
-    answers."""
+    """A corpus past ``plane_rows`` splits into several device planes in
+    both packages (the planar capacity route), and the port gives the JAX
+    package's answers through its own planes
+    (``tests/test_torch_planar.py`` holds the route in full)."""
     monkeypatch.setattr(JAX_CONFIG, "plane_rows", 1024)
+    monkeypatch.setattr(TORCH_CONFIG, "plane_rows", 1024)
     docs, v = _corpus(seed=2, n=4096)
     jdb = JaxDB(docs, v, fp_precision="float16")
     tdb = TorchDB(docs, v, fp_precision="float16", device="cpu")
-    assert jdb._store.is_planar(4096)
+    assert jdb._store.is_planar(4096) and tdb._store.is_planar(4096)
     q = _queries(64, v, seed=1)
-    _same(
-        jdb.query_batch_arrays(q, top_k=10, metric=metric),
-        tdb.query_batch_arrays(q, top_k=10, metric=metric),
-    )
+    got = tdb.query_batch_arrays(q, top_k=10, metric=metric)
+    _same(jdb.query_batch_arrays(q, top_k=10, metric=metric), got)
+    assert list(got[0][0, :2]) == [4, 17]
+    dv = tdb._store.device_view(tdb.source_indices)
+    planes = dv["rows_norm_planes" if metric == "cosine_similarity" else "rows_planes"]
+    assert [p.shape[0] for p in planes] == [1024] * 4
+    assert "rows" not in dv and "rows_norm" not in dv  # no one-plane build

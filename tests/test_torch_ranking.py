@@ -163,8 +163,8 @@ def test_large_manhattan_not_ported(grouped):
 
 
 # --------------------------------------------------------------------------
-# the ops package's exports: JAX's ``hyperdb_tpu.ops.__all__`` but the planar
-# route, each name held to its JAX counterpart on one small input
+# the ops package's exports: JAX's ``hyperdb_tpu.ops.__all__``, each name
+# held to its JAX counterpart on one small input
 # --------------------------------------------------------------------------
 
 
@@ -219,6 +219,11 @@ def _export_cases():
             tops.ranking_algorithm_sort(v, q[0], k, timestamps=ts, recency_bias=0.5,
                                         device="cpu")),
         "recency_scores": lambda: (JOPS.recency_scores(ts, 0.5), tops.recency_scores(ts, 0.5)),
+        "rank_top_k_planar": lambda: (
+            JOPS.rank_top_k_planar(J(q), [J(v[:100]), J(v[100:])], k, metric="euclidean_metric",
+                                   row_masks=[J(mask[:100]), J(mask[100:])]),
+            tops.rank_top_k_planar(T(q), [T(v[:100]), T(v[100:])], k, metric="euclidean_metric",
+                                   row_masks=[T(mask[:100]), T(mask[100:])])),
     })
     return cases
 
@@ -230,14 +235,16 @@ def _as_numpy(x):
 
 
 def test_ops_exports_jax_names_but_the_planar_route():
+    """The port's ``ops`` exports every name of JAX's ``ops.__all__``, the
+    planar route included, in JAX's order."""
     from hyperdb_tpu_torch import ops as tops
 
-    assert tops.__all__ == [n for n in JOPS.__all__ if n != "rank_top_k_planar"]
+    assert tops.__all__ == JOPS.__all__
     assert set(_export_cases()) == set(tops.__all__)
-    assert not hasattr(tops, "rank_top_k_planar")
+    assert "rank_top_k_planar" in tops.__all__
 
 
-@pytest.mark.parametrize("name", [n for n in JOPS.__all__ if n != "rank_top_k_planar"])
+@pytest.mark.parametrize("name", JOPS.__all__)
 def test_ops_export_matches_jax(name):
     """``from hyperdb_tpu_torch.ops import <name>`` gives the JAX function's
     answer: ids equal, floats within 1e-5 relative plus 1e-5 absolute (f32
