@@ -197,8 +197,9 @@ Phases, one or a few lines each on standard output:
    one empty document each, after a check that the host holds the 15 GiB
    it needs (else two planes of 2^23 + 2^22 rows, said so). The DB keeps
    two unit-norm planes of 2^23 rows (``CONFIG.plane_rows``); their build's
-   seconds and peak host and device memory are printed, and at 2^20 rows
-   the chunked build beside the parent's f32 build (the same bits).
+   seconds and peak host and device memory are printed, beside the same
+   build on one thread (``torch.set_num_threads(1)``), and at 2^20 rows
+   the chunked build beside the parent's f32 build (all the same bits).
    ``gmax_f_sub`` (512 x 2^23) and ``gmax_l1`` (64 x 2^23) are held to
    their plain versions at a plane's shape. Cells through
    ``query_batch_arrays``, each with its launches (counters set to 0 just
@@ -207,8 +208,7 @@ Phases, one or a few lines each on standard output:
    (``gmax_f_sub`` once per plane; ids tie-aware equal to an exact f32
    reference over the planes, the first 512 queries at b = 16384; the
    planted copies first, the cross-plane one after its original), with a
-   per-plane stage breakdown beside stage 1's bound; ``planar_serial_bytes``
-   0 against its default at b = 16384; the same DB as one plane
+   per-plane stage breakdown beside stage 1's bound; the same DB as one plane
    (``plane_rows = 0``) at b = 512, and at b = 16384 only where the
    reckoned bytes fit the card (else the count and "not run"); manhattan at
    b = 64 (an L1 kernel once per plane) and euclidean at b = 64 (the plain
@@ -3695,10 +3695,24 @@ def path_capacity(kernels, seed: int, card: str) -> None:
         f"{CONFIG.plane_rows}, planes at {bounds}")
     if planes_n < 2 or bounds[1] != J_PLANE:
         raise AssertionError(f"path J: expected planes of {J_PLANE} rows, got {bounds}")
+    valid = [dv["row_valid"][a:b] for a, b in zip(bounds, bounds[1:])]  # the engine's masks
     planes = measured_build(
         f"split unit-norm planes ({planes_n} x {bounds[1]} rows)",
         lambda: dv["rows_norm_planes"], card,
     )
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = measured_build(
+            f"split unit-norm planes ({planes_n} x {bounds[1]} rows) on 1 thread, not {threads}",
+            lambda: store._materialize_planes("rows_norm", bounds, corpus), card,
+        )
+    finally:
+        torch.set_num_threads(threads)
+    if not all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(one, planes)):
+        raise AssertionError("path J: the planes built on 1 thread differ")
+    del one
+    torch.cuda.empty_cache()
     mono_reckoned = n_pad * DIM * 6 / (1 << 30)
     log(f"path J build of the parent's one plane (not run at this size): an f32 host plane and "
         f"its norm temporary, {n_pad * DIM * 8 / (1 << 30):.1f} GiB of host, and the f32 upload "
@@ -3718,7 +3732,7 @@ def path_capacity(kernels, seed: int, card: str) -> None:
     qp = make_queries(seed + 91, 512, corpus)
     qq = torch.from_numpy(qp).to(dev)
     qq = (qq / torch.sqrt((qq * qq).sum(-1, keepdim=True))).bfloat16()
-    extra = G.make_extra(bounds[1], dv["plane_row_valid"][0], None, device=qq.device)
+    extra = G.make_extra(bounds[1], valid[0], None, device=qq.device)
     gm, sm = G.gmax_f_sub(qq, planes[0], extra, sub=SUB, dual=False)
     pgm, psm = G.gmax_f_sub_plain(qq, planes[0], extra, sub=SUB)
     err = max(max_err(gm, pgm), max_err(sm, psm))
@@ -3764,16 +3778,9 @@ def path_capacity(kernels, seed: int, card: str) -> None:
         del ref
         wall, _ = capacity_cell(db, q, label, card, **kw)
         if not mask:
-            capacity_breakdown(planes, dv["plane_row_valid"], q, wall, card, "cosine")
+            capacity_breakdown(planes, valid, q, wall, card, "cosine")
 
-    # serialized against async at b = 16384, then one plane against planes
-    serial = CONFIG.planar_serial_bytes
-    try:
-        for cap in (0, serial):
-            CONFIG.planar_serial_bytes = cap
-            capacity_cell(db, q16k, f"cosine planar_serial_bytes={cap}", card)
-    finally:
-        CONFIG.planar_serial_bytes = serial
+    # one plane against planes
     dv.pop("rows_norm_planes")
     del planes
     torch.cuda.empty_cache()
@@ -3818,7 +3825,7 @@ def path_capacity(kernels, seed: int, card: str) -> None:
         f"the {L._L1T_MAX_BYTES / (1 << 30):.1f} GiB cap of the transposed copy: {l1_expect}")
     q64 = make_queries(seed + 94, 64, corpus)
     q32 = torch.from_numpy(q64).to(dev)
-    extra = G.make_extra(bounds[1], dv["plane_row_valid"][0], None, device=q32.device)
+    extra = G.make_extra(bounds[1], valid[0], None, device=q32.device)
     err = l1_err("path J gmax_l1", L.gmax_l1(q32, raw[0], extra), L.gmax_l1_plain(q32, raw[0], extra))
     log(f"path J kernel gmax_l1 (64, {bounds[1]}, {DIM}) against its plain version: max_abs_err={err:.3g}")
     del q32, extra

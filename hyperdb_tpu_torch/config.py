@@ -70,10 +70,6 @@ class EngineConfig:
     # exactly (ops/ranking.rank_top_k_planar), so a scan's temporaries are
     # sized by a plane, not by the corpus. 0 disables (one plane at any n).
     plane_rows: int = _env_int("HYPERDB_PLANE_ROWS", 1 << 23)
-    # From this many bytes of planes on, the planar route reads each
-    # plane's (B, k) winners to the host before it ranks the next plane.
-    # 0 disables (never read back early).
-    planar_serial_bytes: int = _env_int("HYPERDB_PLANAR_SERIAL_BYTES", 8 << 30)
     # Row count from which a corpus builds an IVF index (index/ivf.py) and
     # routes eligible single queries through its candidate pre-filter.
     # Opt-in (1<<62 disables), as in the JAX package.

@@ -16,8 +16,7 @@ padded device view:
   ``rows_pearson`` (:meth:`VectorStore.pearson_view`), built on first use
 - ``rows_planes`` / ``rows_norm_planes``: the two float planes split at
   :meth:`VectorStore.plane_bounds` (a capacity corpus, past
-  ``CONFIG.plane_rows``), and ``plane_row_valid``, ``row_valid`` split the
-  same way
+  ``CONFIG.plane_rows``)
 
 Every plane is computed on the host in NumPy exactly as the JAX package
 computes it, so the two packages' planes are bit-equal. Padding snaps N to a small set of bucket sizes (both packages scan the
@@ -27,7 +26,7 @@ planes — the dtype the stage-1 kernels take — and float64 masters f32.
 
 from __future__ import annotations
 
-import os
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -49,20 +48,36 @@ def bucket_size(n: int, minimum: int = 8) -> int:
 _BUILD_CHUNK_ELEMS = 1 << 24
 
 
-def _over_row_chunks(lo: int, hi: int, d: int, fn) -> None:
-    """Call ``fn(s, e)`` on consecutive row ranges covering [lo, hi) of
-    ``_BUILD_CHUNK_ELEMS`` elements each, on up to ``os.cpu_count()``
-    threads (NumPy's and torch's element loops release the GIL). Each range
-    is computed on its own, so the result is the same on any number of
-    threads; an exception in any call is raised here."""
+def _over_row_chunks(lo: int, hi: int, d: int, work, place) -> None:
+    """Run ``work(s, e)`` on consecutive row ranges covering [lo, hi) of
+    ``_BUILD_CHUNK_ELEMS`` elements each, on ``torch.get_num_threads()``
+    threads, and ``place(s, out)`` on each result in the calling thread, in
+    row order, with at most one range more than the threads in flight.
+    ``work`` runs NumPy only (its element loops release the GIL), so
+    torch's intra-op threads serve only ``place``, in the calling thread.
+    An exception in either is raised here."""
     step = max(1, _BUILD_CHUNK_ELEMS // max(1, d))
-    starts = range(lo, hi, step)
-    if len(starts) <= 1:
-        for s in starts:
-            fn(s, hi)
-        return
-    with ThreadPoolExecutor(max_workers=min(len(starts), os.cpu_count() or 1)) as pool:
-        list(pool.map(lambda s: fn(s, min(hi, s + step)), starts))
+    threads = max(1, torch.get_num_threads())
+    with ThreadPoolExecutor(threads) as pool:
+        pending = deque()
+        for s in range(lo, hi, step):
+            pending.append((s, pool.submit(work, s, min(hi, s + step))))
+            if len(pending) > threads:
+                s0, out = pending.popleft()
+                place(s0, out.result())
+        for s0, out in pending:
+            place(s0, out.result())
+
+
+def _host_rows(vectors: np.ndarray, s: int, e: int, normalize: bool) -> np.ndarray:
+    """Master rows [s, e) in f32, normalized as the JAX store normalizes
+    its whole f32 plane (the norm and the division are per row)."""
+    chunk = vectors[s:e].astype(np.float32)  # a copy: normalized in place
+    if normalize:
+        norms = np.linalg.norm(chunk, axis=1, keepdims=True)
+        norms[norms == 0] = 1.0
+        chunk /= norms
+    return chunk
 
 
 _DEVICE_DTYPES = {
@@ -90,15 +105,13 @@ class _LazyDeviceView(dict):
         self._vectors = vectors
 
     def __missing__(self, key):
+        store, n_pad = self._store, self["n_pad"]
         if key in self._LAZY_KEYS:
-            value = self._store._materialize_plane(key, self["n_pad"], self._vectors)
+            (value,) = store._materialize_planes(key, [0, n_pad], self._vectors)
         elif key in self._LAZY_PLANE_KEYS:
-            value = self._store._materialize_split_planes(
-                key.removesuffix("_planes"), self["n_pad"], self._vectors
+            value = store._materialize_planes(
+                key.removesuffix("_planes"), store.plane_bounds(n_pad), self._vectors
             )
-        elif key == "plane_row_valid":
-            bounds = self._store.plane_bounds(self["n_pad"])
-            value = tuple(self["row_valid"][a:b] for a, b in zip(bounds, bounds[1:]))
         else:
             raise KeyError(key)
         self[key] = value
@@ -216,36 +229,21 @@ class VectorStore:
     def _build_plane(self, vectors: np.ndarray, lo: int, hi: int, rows: int,
                      normalize: bool) -> torch.Tensor:
         """Master rows [lo, hi) as one (rows, d) device plane, zero past
-        ``hi - lo`` and unit-norm where ``normalize``.
-
-        Built a chunk of rows at a time (:func:`_over_row_chunks`): each
-        chunk is cast to f32, normalized as the JAX store normalizes its
-        whole f32 plane (the norm and the division are per row), rounded to
-        the plane dtype on the host and copied into the plane. So the
-        planes' bits are the JAX package's, and neither side ever holds an
-        f32 copy of a plane."""
+        ``hi - lo`` and unit-norm where ``normalize``, built a chunk of rows
+        at a time (:func:`_over_row_chunks`): each chunk is made in f32 by
+        :func:`_host_rows`, rounded to the plane dtype on the host (torch's
+        CPU cast rounds to nearest even, as ml_dtypes does) and copied in.
+        So the planes' bits are the JAX package's, and neither side ever
+        holds an f32 copy of a plane."""
         d = vectors.shape[1]
         dtype = _DEVICE_DTYPES.get(self.fp_dtype, torch.float32)
         plane = torch.zeros((rows, d), dtype=dtype, device=self.device)
 
-        def build(s: int, e: int) -> None:
-            chunk = vectors[s:e].astype(np.float32)  # a copy: normalized in place
-            if normalize:
-                norms = np.linalg.norm(chunk, axis=1, keepdims=True)
-                norms[norms == 0] = 1.0
-                chunk /= norms
-            plane[s - lo : e - lo].copy_(torch.from_numpy(chunk).to(dtype))
+        def place(s: int, chunk: np.ndarray) -> None:
+            plane[s - lo : s - lo + chunk.shape[0]].copy_(torch.from_numpy(chunk).to(dtype))
 
-        _over_row_chunks(lo, hi, d, build)
+        _over_row_chunks(lo, hi, d, lambda s, e: _host_rows(vectors, s, e, normalize), place)
         return plane
-
-    def _materialize_plane(self, key: str, n_pad: int, vectors=None):
-        """Upload ONE plane ('rows'/'rows_norm') of all n_pad rows."""
-        if self.precision == "int8-pure":
-            raise KeyError(key)  # int8-pure never holds float planes
-        if vectors is None:
-            vectors = self.vectors
-        return self._build_plane(vectors, 0, vectors.shape[0], n_pad, key == "rows_norm")
 
     @staticmethod
     def plane_bounds(n_pad: int) -> list[int]:
@@ -266,17 +264,14 @@ class VectorStore:
         """True when this corpus' float device planes are split."""
         return len(self.plane_bounds(n_pad)) > 2
 
-    def _materialize_split_planes(self, key: str, n_pad: int, vectors=None):
+    def _materialize_planes(self, key: str, bounds, vectors: np.ndarray) -> tuple:
         """One float plane ('rows'/'rows_norm') as a tuple of device planes
-        at :meth:`plane_bounds`, each built from its own window of the
-        master: the peak temporaries are those of a chunk, and the planes
-        concatenate to :meth:`_materialize_plane`'s bit for bit."""
+        at ``bounds`` (``[0, n_pad]`` for one plane), each built from its
+        own window of the master: the peak temporaries are those of a chunk,
+        and split planes concatenate to the one plane bit for bit."""
         if self.precision == "int8-pure":
-            raise KeyError(key)
-        if vectors is None:
-            vectors = self.vectors
+            raise KeyError(key)  # int8-pure never holds float planes
         n = vectors.shape[0]
-        bounds = self.plane_bounds(n_pad)
         return tuple(
             self._build_plane(vectors, a, min(b, n), b - a, key == "rows_norm")
             for a, b in zip(bounds, bounds[1:])
@@ -296,11 +291,14 @@ class VectorStore:
 
         row_sq = np.zeros(n_pad, dtype=np.float32)
 
-        def squares(s: int, e: int) -> None:
+        def squares(s: int, e: int) -> np.ndarray:
             chunk = self.vectors[s:e].astype(np.float32, copy=False)
-            row_sq[s:e] = np.sum(chunk * chunk, axis=1)
+            return np.sum(chunk * chunk, axis=1)
 
-        _over_row_chunks(0, n, d, squares)
+        def place(s: int, sums: np.ndarray) -> None:
+            row_sq[s : s + sums.shape[0]] = sums
+
+        _over_row_chunks(0, n, d, squares, place)
 
         row_valid = np.zeros(n_pad, dtype=bool)
         row_valid[:n] = True

@@ -475,8 +475,9 @@ def rank_top_k_planar(
     Every metric scores a row independently of the rest of the corpus, so
     the global top-k lies in the union of the per-plane top-k and the merge
     is exact; ties go to the lowest global id (:func:`_merge_plane_topk`).
-    From ``CONFIG.planar_serial_bytes`` bytes of planes on, each plane's
-    (B, k) winners are read to the host before the next plane is ranked.
+    The planes are ranked back to back on one stream, with no read-back in
+    between: the caching allocator hands a plane's freed temporaries to the
+    next plane in stream order.
 
     Args mirror :func:`rank_top_k`: ``planes`` is a sequence of (N_i, d)
     tensors; ``row_masks`` / ``recencies`` are optional sequences aligned
@@ -493,8 +494,6 @@ def rank_top_k_planar(
             recency=None if recencies is None else recencies[0],
             prenormalized=prenormalized,
         )
-    cap = CONFIG.planar_serial_bytes
-    serialize = 0 < cap <= sum(p.numel() * p.element_size() for p in planes)
     vals_parts, idx_parts, offsets = [], [], []
     offset = 0
     for i, plane in enumerate(planes):
@@ -504,8 +503,6 @@ def rank_top_k_planar(
             recency=None if recencies is None else recencies[i],
             prenormalized=prenormalized,
         )
-        if serialize and i + 1 < len(planes):
-            idx.cpu()  # this plane's work ends before the next plane's starts
         vals_parts.append(v)
         idx_parts.append(idx)
         offsets.append(offset)

@@ -719,11 +719,9 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k, cand_rows=N
             # merged exactly. Placed where the JAX engine has it, so every
             # metric takes the JAX package's planar route (euclidean,
             # hamming, jaccard and pearson the plain per-plane scores).
-            spans = list(zip(store.plane_bounds(n_pad), store.plane_bounds(n_pad)[1:]))
-            if mask.all():
-                masks = dv["plane_row_valid"]
-            else:
-                masks = [row_mask_dev[a:b] for a, b in spans]
+            bounds = store.plane_bounds(n_pad)
+            spans = list(zip(bounds, bounds[1:]))
+            masks = [row_mask_dev[a:b] for a, b in spans]
             recs = None if rec_pad is None else [rec_pad[a:b] for a, b in spans]
             vals, idx = _ranking.rank_top_k_planar(
                 q,

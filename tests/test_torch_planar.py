@@ -2,7 +2,7 @@
 
 An unchunked corpus of more padded rows than ``CONFIG.plane_rows`` keeps
 its float device planes split (``core/store.py``: ``plane_bounds``,
-``rows_planes``, ``rows_norm_planes``, ``plane_row_valid``), and the
+``rows_planes``, ``rows_norm_planes``), and the
 engine's device branch ranks it plane by plane through
 ``ops/ranking.rank_top_k_planar``, which merges the per-plane winners.
 These tests mirror ``tests/test_planar_engine.py`` and
@@ -293,8 +293,9 @@ def _bits(x):
 @pytest.mark.parametrize("key", ["rows", "rows_norm"])
 def test_split_planes_reassemble_bitwise(monkeypatch, key, dtype):
     """The split planes concatenate to the one-plane build bit for bit, in
-    both keys, and equal the JAX package's split planes; ``plane_row_valid``
-    concatenates to ``row_valid``. 1500 rows pad to 1536: three planes of
+    both keys, and equal the JAX package's split planes; ``row_valid``
+    sliced at the bounds (the engine's per-plane masks) equals the JAX
+    package's ``plane_row_valid``. 1500 rows pad to 1536: three planes of
     512, the last with padding (and a zero row, whose norm is taken as 1)."""
     _set(monkeypatch, plane_rows=512)
     rng = np.random.default_rng(5)
@@ -314,11 +315,46 @@ def test_split_planes_reassemble_bitwise(monkeypatch, key, dtype):
     np.testing.assert_array_equal(one, _bits(jdv[key]))
     for tp, jp in zip(planes, jdv[key + "_planes"]):
         np.testing.assert_array_equal(_bits(tp), _bits(jp))
+    valid = tdv["row_valid"].numpy()
+    assert len(jdv["plane_row_valid"]) == len(bounds) - 1
+    for (a, b), jm in zip(zip(bounds, bounds[1:]), jdv["plane_row_valid"]):
+        np.testing.assert_array_equal(valid[a:b], np.asarray(jm))
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_chunked_build_matches_one_chunk(monkeypatch, threads):
+    """Plane builds and the ``row_sq`` pass over many chunks (7 rows each,
+    a ragged last one) on 1 and 3 threads equal the one-chunk build bit for
+    bit, and the unit-norm planes equal the JAX package's; a zero row takes
+    norm 1."""
+    from hyperdb_tpu_torch.core import store as S
+
+    _set(monkeypatch, plane_rows=512)
+    rng = np.random.default_rng(6)
+    v = rng.standard_normal((1500, 24)).astype(np.float16)
+    v[7] = 0.0
+    one = TorchStore(np.float16, device="cpu")
+    one.set(v)
+    want = one.device_view(range(1500))
+    monkeypatch.setattr(S, "_BUILD_CHUNK_ELEMS", 24 * 7)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        t = TorchStore(np.float16, device="cpu")
+        t.set(v)
+        got = t.device_view(range(1500))
+        for key in ("rows", "rows_norm", "row_sq"):
+            np.testing.assert_array_equal(_bits(got[key]), _bits(want[key]))
+        for key in ("rows_planes", "rows_norm_planes"):
+            for g, w in zip(got[key], want[key]):
+                np.testing.assert_array_equal(_bits(g), _bits(w))
+    finally:
+        torch.set_num_threads(before)
+    j = JaxStore(np.float16)
+    j.set(v)
     np.testing.assert_array_equal(
-        np.concatenate([m.numpy() for m in tdv["plane_row_valid"]]), tdv["row_valid"].numpy()
+        _bits(got["rows_norm"]), _bits(j.device_view(list(range(1500)))["rows_norm"])
     )
-    for tm, jm in zip(tdv["plane_row_valid"], jdv["plane_row_valid"]):
-        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
 
 
 def test_int8_pure_has_no_split_planes(monkeypatch):
@@ -434,31 +470,6 @@ def test_route_single_plane_passthrough(monkeypatch):
     _same(got, want)
     with pytest.raises(ValueError):
         TR.rank_top_k_planar(torch.from_numpy(q), [], 4)
-
-
-def test_route_serialization_is_result_identical(monkeypatch):
-    """From ``planar_serial_bytes`` on, each plane's winners are read to the
-    host before the next plane is ranked (one read per plane but the last);
-    the answer is the same bit for bit."""
-    rng = np.random.default_rng(25)
-    v = torch.from_numpy(rng.standard_normal((96, 16)).astype(np.float32))
-    q = torch.from_numpy(rng.standard_normal((4, 16)).astype(np.float32))
-    planes = [v[:40], v[40:64], v[64:]]
-    reads = []
-    real_cpu = torch.Tensor.cpu
-    monkeypatch.setattr(torch.Tensor, "cpu", lambda self, *a, **kw: reads.append(
-        tuple(self.shape)) or real_cpu(self, *a, **kw))
-    monkeypatch.setattr(TORCH_CONFIG, "planar_serial_bytes", 0)
-    async_v, async_i = TR.rank_top_k_planar(q, planes, k=6, metric="dot_product")
-    assert reads == []
-    monkeypatch.setattr(TORCH_CONFIG, "planar_serial_bytes", 96 * 16 * 4)
-    serial_v, serial_i = TR.rank_top_k_planar(q, planes, k=6, metric="dot_product")
-    assert reads == [(4, 6), (4, 6)]
-    monkeypatch.setattr(TORCH_CONFIG, "planar_serial_bytes", 96 * 16 * 4 + 1)
-    reads.clear()
-    TR.rank_top_k_planar(q, planes, k=6, metric="dot_product")
-    assert reads == []  # under the threshold: no early read
-    assert torch.equal(serial_i, async_i) and torch.equal(serial_v, async_v)
 
 
 def test_ops_package_exports_the_route():
