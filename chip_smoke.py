@@ -6,11 +6,13 @@ Phases, one or a few lines each on standard output:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the torch
    and nvcc versions, and the time the kernels took to build. The stage-1
-   scans exist in two variants (``wgmma`` fed by TMA, which the shape rule
-   ``gmax.kernel_variant`` picks at these shapes, and ``mma.sync``): every
-   launch through ``HyperDB`` must have run the first
-   (``gmax.LAUNCHES_BY_VARIANT``), and each of the four kernels is also timed
-   through the second in the same run (``ms_before``);
+   scans have two variants, chosen by the shape rule
+   ``gmax.kernel_variant``: ``wgmma`` with a resident query tile (rows of up
+   to 1536 bytes: paths A-J) and ``wgmma_stream`` (deeper rows: path K);
+   every launch through ``HyperDB`` must have run the variant the rule picks
+   (``gmax.LAUNCHES_BY_VARIANT``), and each of the four kernels is also
+   timed through the first port's ``mma.sync`` kernel, which no route
+   reaches, in the same run (``ms_before``);
 2. the float kernels (``gmax_f_sub`` single and dual, ``gmax_f``) against
    their plain PyTorch versions at the main path's shapes: a 2^20-row,
    d = 384 bf16 plane, b = 512, with masked rows, recency, a NaN row, a
@@ -197,9 +199,8 @@ Phases, one or a few lines each on standard output:
    one empty document each, after a check that the host holds the 15 GiB
    it needs (else two planes of 2^23 + 2^22 rows, said so). The DB keeps
    two unit-norm planes of 2^23 rows (``CONFIG.plane_rows``); their build's
-   seconds and peak host and device memory are printed, beside the same
-   build on one thread (``torch.set_num_threads(1)``), and at 2^20 rows
-   the chunked build beside the parent's f32 build (all the same bits).
+   seconds and peak host and device memory are printed, and at 2^20 rows
+   the chunked build beside the parent's f32 build (the same bits).
    ``gmax_f_sub`` (512 x 2^23) and ``gmax_l1`` (64 x 2^23) are held to
    their plain versions at a plane's shape. Cells through
    ``query_batch_arrays``, each with its launches (counters set to 0 just
@@ -215,7 +216,24 @@ Phases, one or a few lines each on standard output:
    per-plane scores, no launch) over the raw planes, each held to an exact
    difference-form reference.
 
-Then a JSON line describing every kernel, and as the last line
+17. path K, deep rows (after path J): a seeded 2^20 x 4480 float16 corpus
+   (the default hybrid embedder's width: the 384-d encoder beside the
+   4096-d lexical hash) drawn on the card, row 4 copied to row 17, one empty
+   document each. Through ``query_batch_arrays``, each call counted (launch
+   counters set to 0 just before, read just after; every launch on
+   ``wgmma_stream``, none on ``mma.sync``) and its ids held tie-aware to an
+   exact reference over the same plane (the planted pair first): cosine at
+   b = 512 and 4096 (``gmax_f_sub``) and at b = 512 with
+   ``pallas_subgroup = 0`` (``gmax_f``), jaccard at b = 512 over the store's
+   0/1 plane, whose unions pass 2048 (``gmax_jaccard``), and an
+   ``int8-pure`` DB at b = 1024 (``gmax_int8``), each timed with its stage
+   breakdown. Each kernel is held to its plain version at the route's
+   operands (f32 within 1e-5; int8 and jaccard equal) and to ``mma.sync``,
+   and timed beside its bound, ``ms_before``, its plain version and one
+   library call (``torch.mm`` or ``torch._int_mm`` plus the epilogue), with
+   the bytes it reckons to move from device memory and from L2.
+
+Then a JSON line describing every kernel (path K's as "<name> d=4480"), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no last line. It needs one CUDA device and refuses to run
 without one.
@@ -224,6 +242,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -311,6 +330,12 @@ J_BIG_BATCH = 16384  # bench.py's batch
 # difference form; the planted copies score near 1, where an f32 ulp is 6e-8
 # and the difference form rounds by a few
 J_EUCLIDEAN_ATOL = 1e-6
+# path K: deep rows. The default text embedder's width (the 384-d encoder
+# beside the 4096-d lexical hash, models/embedder.py) at the README's scale
+# for the stage-1 kernels (2^18 rows or more; 2^20 here, as paths A-D)
+K_ROWS = 1 << 20
+K_DIM = 384 + 4096
+K_BIG_BATCH = 4096
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOAD_TOOL = os.path.join(ROOT, "hyperdb_tpu_torch", "tools", "serve_load.py")
 NEG_INF = float("-inf")
@@ -1077,16 +1102,18 @@ def zero_launches(G) -> None:
             counter[key] = 0
 
 
-def check_variant(G, name: str) -> dict:
-    """Every stage-1 launch since the counters were zeroed ran the wgmma
-    variant: the variant counter holds the wrappers' launches, all under
-    ``wgmma``. Returns a copy of the variant counter."""
+def check_variant(G, name: str, variant: str = "wgmma") -> dict:
+    """Every stage-1 launch since the counters were zeroed ran ``variant``
+    (``wgmma`` at the rows of paths A-J, ``wgmma_stream`` at path K's): the
+    variant counter holds the wrappers' launches, all under that key. Returns
+    a copy of the variant counter."""
     by_variant = dict(G.LAUNCHES_BY_VARIANT)
     total = sum(G.LAUNCHES.values())
-    if by_variant != {"wgmma": total, "mma": 0}:
+    want = {key: total if key == variant else 0 for key in by_variant}
+    if by_variant != want:
         raise AssertionError(
             f"{name}: {total} launches by wrapper but {by_variant} by variant: "
-            "the path did not run the wgmma kernel alone"
+            f"the path did not run the {variant} kernel alone"
         )
     return by_variant
 
@@ -3652,11 +3679,11 @@ def capacity_cell(db, q, label, card, metric="cosine_similarity", **kw):
     return ms, peak
 
 
-def capacity_counted(db, q, label, metric, G, L, expect, **kw):
+def counted_call(db, q, label, metric, G, L, expect, variant="wgmma", **kw):
     """One counted call through the entry point: every launch counter set
     to 0 just before it and read just after; ``expect`` is {kernel:
     launches}, every other kernel must stay at 0, and every stage-1 launch
-    must have run the ``wgmma`` variant. Returns (ids, scores, launches)."""
+    must have run ``variant``. Returns (ids, scores, launches)."""
     zero_launches(G)
     zero_launches(L)
     ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric=metric, **kw)
@@ -3665,9 +3692,9 @@ def capacity_counted(db, q, label, metric, G, L, expect, **kw):
         if key in expect or v
     }
     if launches != expect:
-        raise AssertionError(f"path J {label}: launched {launches}, expected {expect}")
-    check_variant(G, f"path J {label}")
-    log(f"path J {label}: stage-1 launches {json.dumps(launches)}")
+        raise AssertionError(f"{label}: launched {launches}, expected {expect}")
+    check_variant(G, label, variant)
+    log(f"{label}: stage-1 launches {json.dumps(launches)} on {variant}")
     return ids, vals, launches
 
 
@@ -3700,19 +3727,6 @@ def path_capacity(kernels, seed: int, card: str) -> None:
         f"split unit-norm planes ({planes_n} x {bounds[1]} rows)",
         lambda: dv["rows_norm_planes"], card,
     )
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        one = measured_build(
-            f"split unit-norm planes ({planes_n} x {bounds[1]} rows) on 1 thread, not {threads}",
-            lambda: store._materialize_planes("rows_norm", bounds, corpus), card,
-        )
-    finally:
-        torch.set_num_threads(threads)
-    if not all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(one, planes)):
-        raise AssertionError("path J: the planes built on 1 thread differ")
-    del one
-    torch.cuda.empty_cache()
     mono_reckoned = n_pad * DIM * 6 / (1 << 30)
     log(f"path J build of the parent's one plane (not run at this size): an f32 host plane and "
         f"its norm temporary, {n_pad * DIM * 8 / (1 << 30):.1f} GiB of host, and the f32 upload "
@@ -3746,7 +3760,7 @@ def path_capacity(kernels, seed: int, card: str) -> None:
     path_launches = {}
 
     def counted(label, q, metric, expect, **kw):
-        ids, vals, launches = capacity_counted(db, q, label, metric, G, L, expect, **kw)
+        ids, vals, launches = counted_call(db, q, f"path J {label}", metric, G, L, expect, **kw)
         for key, v in launches.items():
             path_launches[key] = path_launches.get(key, 0) + v
         return ids, vals
@@ -3852,6 +3866,297 @@ def path_capacity(kernels, seed: int, card: str) -> None:
     del raw, dv, db, store, corpus
     torch.cuda.empty_cache()
     log(f"path J: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------- path K: deep rows
+
+
+def free_device(label: str) -> None:
+    """Collect the reference cycles a dropped DB leaves (a store and its
+    device view point at each other, so ``del`` alone frees no plane), hand
+    the cache back, and print what stays allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{label}: {torch.cuda.memory_allocated() / (1 << 30):.2f} GiB of device memory allocated")
+
+
+def make_deep_corpus(seed: int, n: int, d: int) -> np.ndarray:
+    """``n`` x ``d`` float16 rows drawn on the card from a seeded generator
+    (a chunk at a time) into one host array; row 4 is copied to row 17."""
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 100)
+    host = np.empty((n, d), dtype=np.float16)
+    step = 1 << 17
+    for a in range(0, n, step):
+        rows = min(step, n - a)
+        block = torch.randn((rows, d), generator=gen, device=dev).half()
+        torch.from_numpy(host[a : a + rows]).copy_(block)
+    host[17] = host[4]
+    return host
+
+
+def deep_queries(seed: int, b: int, corpus: np.ndarray) -> np.ndarray:
+    q = np.random.default_rng(seed).standard_normal((b, corpus.shape[1]), dtype=np.float32)
+    q[0] = corpus[4].astype(np.float32)
+    return q
+
+
+def deep_scan_bytes(b: int, n: int, row_bytes: int, out_cols: int) -> tuple:
+    """Device bytes of one scan by the streaming kernel: (from device memory,
+    from L2 into shared memory). The corpus is read from device memory about
+    once (the clusters holding one 256-row item's query tiles run together),
+    the queries, the per-row and per-query terms once, the maxes written
+    once. Into shared memory every block takes, per box of depth, its
+    query box and half of the item's corpus box (the other half arrives by
+    multicast): 32 KB for each (block, item, box)."""
+    boxes = -(-row_bytes // 128)
+    tiles = -(-b // 128)
+    pairs = -(-tiles // 2)
+    items = -(-n // 256)
+    dram = n * row_bytes + b * row_bytes + 8 * n + 4 * b + 4 * b * out_cols
+    l2 = pairs * items * 2 * boxes * 32768
+    return dram, l2
+
+
+def deep_kernel_entry(name, line, b, n, row_bytes, out_cols, err, kern, plain, lib, bound,
+                      before, reps=10):
+    """``kernel_entry`` for a path K kernel (``line``: the TPU kernel's line
+    in pallas_gmax.py), plus the reckoned device bytes. Past b = 1024 the
+    plain version and the library call are timed once each (a second)."""
+    entry = kernel_entry(f"{name} d={K_DIM}", f"hyperdb_tpu/ops/pallas_gmax.py:{line}", err,
+                         kern, plain, lib, bound, reps=reps, slow=b > 1024, before=before)
+    entry["variant"] = "wgmma_stream"
+    dram, l2 = deep_scan_bytes(b, n, row_bytes, out_cols)
+    log(f"kernel {name} d={K_DIM} b={b}: reckoned {dram / 1e9:.2f} GB from device memory "
+        f"({dram / 1e9 / entry['ms']:.3f} TB/s), {l2 / 1e9:.2f} GB from L2 into shared "
+        f"memory ({l2 / 1e9 / entry['ms']:.3f} TB/s)")
+    return entry
+
+
+def path_deep(kernels, seed: int, card: str) -> None:
+    """Path K: the stage-1 routes at 2^20 x 4480, the streaming variant."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops import l1 as L
+    from hyperdb_tpu_torch.ops import metrics as M
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    t0 = time.perf_counter()
+    dev = card_device()
+    free_device("path K start")
+    n, d = K_ROWS, K_DIM
+    corpus = make_deep_corpus(seed, n, d)
+    log(f"path K corpus: {n} x {d} float16 drawn on the card, {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    db = HyperDB(documents=[{}] * n, vectors=corpus, fp_precision="float16")
+    dv = db._store.device_view(db.source_indices)
+    plane, n_pad = dv["rows_norm"], dv["n_pad"]
+    torch.cuda.synchronize()
+    log(f"path K db: {tuple(plane.shape)} {plane.dtype} plane, {time.perf_counter() - t:.1f} s")
+    if G.kernel_variant(n_pad, d, 2) != "wgmma_stream" or G.kernel_variant(n_pad, d, 1) != "wgmma_stream":
+        raise AssertionError("path K: the shape rule does not send 4480-d rows to wgmma_stream")
+    deep = {}
+
+    def counted(q, label, kernel, metric="cosine_similarity"):
+        ids, vals, _ = counted_call(db, q, f"path K {label}", metric, G, L, {kernel: 1},
+                                    "wgmma_stream")
+        if list(ids[0, :2]) != [4, 17]:
+            raise AssertionError(f"path K {label}: the planted copies 4/17 are not first: {ids[0, :2]}")
+        launches[kernel] += 1
+        return ids, vals
+
+    # K1: cosine at b = 512 and 4096 (gmax_f_sub), b = 512 with
+    # pallas_subgroup = 0 (gmax_f)
+    q512 = deep_queries(seed + 101, 512, corpus)
+    q4k = deep_queries(seed + 102, K_BIG_BATCH, corpus)
+    launches = {"gmax_f_sub": 0, "gmax_f": 0, "gmax_jaccard": 0, "gmax_int8": 0}
+    for label, q in (("cosine b=512", q512), (f"cosine b={K_BIG_BATCH}", q4k)):
+        ids, vals = counted(q, label, "gmax_f_sub")
+        swaps, err = check_ids(f"path K {label}", ids[:512], vals[:512], plane, n, q[:512], TOP_K)
+        log(f"path K {label}: ids tie-aware equal to the exact reference "
+            f"({'first 512 queries, ' if q.shape[0] > 512 else ''}{swaps} tied swaps, "
+            f"score err {err:.3g})")
+        wall = run_batch(db, q, f"path K {label}", card)
+        stage_breakdown(db, q, wall, card, label=f"path K cosine d={d}")
+    sub = CONFIG.pallas_subgroup
+    CONFIG.pallas_subgroup = 0
+    try:
+        ids, vals = counted(q512, "cosine b=512 gmax_f", "gmax_f")
+        swaps, err = check_ids("path K gmax_f b=512", ids, vals, plane, n, q512, TOP_K)
+        log(f"path K cosine b=512 gmax_f: ids tie-aware equal ({swaps} tied swaps, score err {err:.3g})")
+        run_batch(db, q512, "path K cosine b=512 gmax_f", card)
+    finally:
+        CONFIG.pallas_subgroup = sub
+
+    # the float kernels on the DB's plane at the route's operands, against
+    # their plain versions (1e-5) and the mma.sync variant, then timed
+    extra = kernel_masks(n_pad, n, seed + 103, recency=True)
+
+    def float_check(name, got, want, old):
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        err_old = max(max_err(g, o) for g, o in zip(got, old))
+        for what, e in (("plain version", err), ("mma.sync variant", err_old)):
+            if e > ATOL:
+                raise AssertionError(f"path K {name}: off its {what} by {e:.3g} > {ATOL}")
+        log(f"path K {name} (wgmma_stream) against its plain version: max abs {err:.3g}; "
+            f"against mma.sync: {err_old:.3g} (tol {ATOL})")
+        return err
+
+    def library(qb, width):
+        s = torch.mm(qb, plane.T, out_dtype=torch.float32)
+        return s.view(qb.shape[0], n_pad // width, width).amax(-1)
+
+    for q in (q512, q4k):
+        b = q.shape[0]
+        qb = M._match_low_precision(M.normalize(torch.from_numpy(q).to(dev)), plane)
+        got = G.gmax_f_sub(qb, plane, extra, sub=SUB, dual=True)
+        torch.cuda.synchronize()
+        err = float_check(f"gmax_f_sub b={b}", got, G.gmax_f_sub_plain(qb, plane, extra, sub=SUB),
+                          scan_before(G._KIND_F, qb, plane, extra, sub=SUB))
+        del got
+        entry = deep_kernel_entry(
+            "gmax_f_sub", "265", b, n_pad, 2 * d, n_pad // SUB, err,
+            lambda: G.gmax_f_sub(qb, plane, extra, sub=SUB, dual=False),
+            lambda: G.gmax_f_sub_plain(qb, plane, extra, sub=SUB),
+            lambda: library(qb, SUB), scan_bound_ms(b, n_pad, d, n_pad // SUB),
+            lambda: scan_before(G._KIND_F, qb, plane, extra, sub=SUB, group=False),
+            reps=10 if b == 512 else 3,
+        )
+        if b == 512:  # the kernels line keeps the main batch; b = 4096 is printed
+            deep["gmax_f_sub"] = entry
+        torch.cuda.empty_cache()
+    qb512 = M._match_low_precision(M.normalize(torch.from_numpy(q512).to(dev)), plane)
+    got = G.gmax_f(qb512, plane, extra)
+    torch.cuda.synchronize()
+    err = float_check("gmax_f b=512", (got,), (G.gmax_f_plain(qb512, plane, extra),),
+                      (scan_before(G._KIND_F, qb512, plane, extra)[0],))
+    del got
+    deep["gmax_f"] = deep_kernel_entry(
+        "gmax_f", "217", 512, n_pad, 2 * d, n_pad // G.GROUP, err,
+        lambda: G.gmax_f(qb512, plane, extra), lambda: G.gmax_f_plain(qb512, plane, extra),
+        lambda: library(qb512, G.GROUP), scan_bound_ms(512, n_pad, d, n_pad // G.GROUP),
+        lambda: scan_before(G._KIND_F, qb512, plane, extra),
+    )
+    del qb, qb512
+    torch.cuda.empty_cache()
+
+    # K2: jaccard b = 512 over the store's 0/1 plane; unions past 2048
+    t = time.perf_counter()
+    bv = db._store.binary_view(db.source_indices)
+    rows_bin, bin_sum = bv["rows_bin"], bv["row_bin_sum"]
+    torch.cuda.synchronize()
+    log(f"path K binary view build: {time.perf_counter() - t:.1f} s")
+    qj = deep_queries(seed + 104, 512, corpus)
+    qt = torch.from_numpy(qj).to(dev)
+    q32, qbin = R.grouped_metric_operands(qt, rows_bin, "jaccard_similarity")
+    q_sum = q32.sum(-1, keepdim=True)
+    union = q_sum[:64] + bin_sum[None, :] - (qbin[:64].float() @ rows_bin.float().T)
+    log(f"path K jaccard: unions of the first 64 queries from {float(union[:, :n].min()):.0f} "
+        f"to {float(union[:, :n].max()):.0f} (exact division past 2048 needed)")
+    if float(union.max()) <= 2048:
+        raise AssertionError("path K jaccard: no union past 2048")
+    del union
+    ids, vals = counted(qj, "jaccard b=512", "gmax_jaccard", "jaccard_similarity")
+    ref = Reference(qbin, rows_bin, n, TOP_K, f=lambda inter, a, qs: inter / (a + qs - inter),
+                    aux=bin_sum, qconst=q_sum)
+    swaps, err = check_top_k("path K jaccard b=512", ids, vals, ref, METRIC_ATOL["jaccard_similarity"])
+    log(f"path K jaccard b=512: ids tie-aware equal to the exact reference ({swaps} tied swaps, "
+        f"score err {err:.3g})")
+    del ref
+    wall = run_batch(db, qj, "path K jaccard", card, metric="jaccard_similarity")
+    stage_breakdown_metric(db, "jaccard_similarity", qj, wall, card)
+    jextra = kernel_masks(n_pad, n, seed + 105, recency=False)
+    qbin_k = qbin.clone()
+    qbin_k[3] = 0  # an empty query: every score 0
+    qs_k = qbin_k.float().sum(-1)
+    got = G.gmax_jaccard(qbin_k, rows_bin, qs_k, bin_sum, jextra)
+    torch.cuda.synchronize()
+    want = G.gmax_jaccard_plain(qbin_k, rows_bin, qs_k, bin_sum, jextra)
+    old, _ = scan_before(G._KIND_JACCARD, qbin_k, rows_bin, jextra, qaux=qs_k, vaux=bin_sum)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, old)):
+        raise AssertionError(f"path K gmax_jaccard differs from its plain version or mma.sync "
+                             f"(max abs {max_err(got, want):.3g} / {max_err(got, old):.3g})")
+    log("path K gmax_jaccard b=512 (wgmma_stream): equal to its plain version and to mma.sync")
+    err = max_err(got, want)
+    del got, want, old
+
+    def jac_library():
+        inter = torch.mm(qbin_k, rows_bin.T, out_dtype=torch.float32)
+        s = inter / (qs_k[:, None] + bin_sum[None, :] - inter)
+        s = s.masked_fill_(torch.isnan(s), NEG_INF) + jextra
+        return s.view(512, n_pad // G.GROUP, G.GROUP).amax(-1)
+
+    deep["gmax_jaccard"] = deep_kernel_entry(
+        "gmax_jaccard", "414", 512, n_pad, 2 * d, n_pad // G.GROUP, err,
+        lambda: G.gmax_jaccard(qbin_k, rows_bin, qs_k, bin_sum, jextra),
+        lambda: G.gmax_jaccard_plain(qbin_k, rows_bin, qs_k, bin_sum, jextra),
+        jac_library, scan_bound_ms(512, n_pad, d, n_pad // G.GROUP, "jaccard"),
+        lambda: scan_before(G._KIND_JACCARD, qbin_k, rows_bin, jextra, qaux=qs_k, vaux=bin_sum),
+    )
+    del bv, rows_bin, bin_sum, qbin, qbin_k, q32, dv, plane, db
+    free_device("path K float DB freed")
+
+    # K3: int8-pure b = 1024 (gmax_int8)
+    t = time.perf_counter()
+    db = HyperDB(documents=[{}] * n, vectors=corpus, fp_precision="float16",
+                 device_precision="int8-pure")
+    dv = db._store.device_view(db.source_indices)
+    v_i8, v_scales = dv["rowsn_q"], dv["rown_scales"]
+    torch.cuda.synchronize()
+    log(f"path K int8-pure db: {tuple(v_i8.shape)} {v_i8.dtype} planes, "
+        f"{time.perf_counter() - t:.1f} s")
+    q1k = deep_queries(seed + 106, 1024, corpus)
+    q_i8, q_scale = quantize_queries(q1k)
+    # the reference's f32 products are exact where every |q| |v| over the
+    # int8 rows stays under 2^24 (Cauchy-Schwarz bounds each partial sum)
+    top = max(float((v_i8[r : r + (1 << 17)].float() ** 2).sum(1).max()) for r in range(0, n, 1 << 17))
+    qtop = float((q_i8.float() ** 2).sum(1).max())
+    if top * qtop >= float(1 << 48):
+        raise AssertionError("path K int8: the f32 reference would not be exact")
+    ids, vals = counted(q1k, "int8-pure b=1024", "gmax_int8")
+    ref = Reference(q_i8, v_i8, n, TOP_K, f=lambda inter, a, qs: inter * (qs * a),
+                    aux=v_scales, qconst=q_scale[:, None])
+    swaps, err = check_top_k("path K int8-pure b=1024", ids, vals, ref, INT8_ATOL)
+    log(f"path K int8-pure b=1024: ids tie-aware equal to the plain int8 reference "
+        f"({swaps} tied swaps, score err {err:.3g}, tol {INT8_ATOL})")
+    del ref
+    wall = run_batch(db, q1k, "path K int8-pure", card)
+    stage_breakdown_int8(db, q1k, wall, card)
+    iextra = kernel_masks(n_pad, n, seed + 107, recency=True)
+    got = G.gmax_int8(q_i8, q_scale, v_i8, v_scales, iextra)
+    torch.cuda.synchronize()
+    want = G.gmax_int8_plain(q_i8, q_scale, v_i8, v_scales, iextra)
+    old, _ = scan_before(G._KIND_INT8, q_i8, v_i8, iextra, qaux=q_scale, vaux=v_scales)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, old)):
+        raise AssertionError(f"path K gmax_int8 differs from its plain version or mma.sync "
+                             f"(max abs {max_err(got, want):.3g} / {max_err(got, old):.3g})")
+    log("path K gmax_int8 b=1024 (wgmma_stream): equal to its plain version and to mma.sync")
+    err = max_err(got, want)
+    del got, want, old
+    lib = None
+    if hasattr(torch, "_int_mm"):
+        def lib():
+            s = torch._int_mm(q_i8, v_i8.T).float() * (q_scale[:, None] * v_scales[None, :]) + iextra
+            return s.view(1024, n_pad // G.GROUP, G.GROUP).amax(-1)
+    deep["gmax_int8"] = deep_kernel_entry(
+        "gmax_int8", "460", 1024, n_pad, d, n_pad // G.GROUP, err,
+        lambda: G.gmax_int8(q_i8, q_scale, v_i8, v_scales, iextra),
+        lambda: G.gmax_int8_plain(q_i8, q_scale, v_i8, v_scales, iextra),
+        lib, scan_bound_ms(1024, n_pad, d, n_pad // G.GROUP, "int8"),
+        lambda: scan_before(G._KIND_INT8, q_i8, v_i8, iextra, qaux=q_scale, vaux=v_scales),
+    )
+    del dv, db, v_i8, v_scales, corpus
+    free_device("path K end")
+
+    for name, entry in deep.items():
+        entry["launches"] = launches[name]
+        kernels[entry["name"]] = entry
+    log(f"path K launches: {json.dumps(launches)}")
+    log(f"path K: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -4000,12 +4305,16 @@ def main() -> int:
     # 16. path J: the planar capacity route at 2^24 rows
     path_capacity(kernels, args.seed, card)
 
+    # 17. path K: deep rows (2^20 x 4480), the streaming variant
+    path_deep(kernels, args.seed, card)
+
     # 14. path H4: the multi-process launchers
     t = time.perf_counter()
     path_multiprocess(card)
     log(f"path H4: {time.perf_counter() - t:.1f} s")
 
-    names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard", "gmax_l1", "gmax_l1t")
+    names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard", "gmax_l1", "gmax_l1t",
+             *(f"{name} d={K_DIM}" for name in ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard")))
     for name in names:
         if kernels[name]["launches"] < 1:
             raise AssertionError(f"{name} was never launched through HyperDB")

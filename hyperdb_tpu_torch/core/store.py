@@ -199,25 +199,6 @@ class VectorStore:
             self._host = {"rows": rows, "rows_norm": rows / norms}
         return self._host
 
-    @staticmethod
-    def _padded_raw(vectors: np.ndarray, n_pad: int) -> np.ndarray:
-        """(n_pad, d) f32 host plane of the raw rows."""
-        n, d = vectors.shape
-        host = np.zeros((n_pad, d), dtype=np.float32)
-        host[:n] = vectors.astype(np.float32, copy=False)
-        return host
-
-    def _padded_planes(self, n_pad: int):
-        """(n_pad, d) f32 host planes: raw rows and unit-norm rows (the int8
-        quantize path needs both at once)."""
-        n = self.vectors.shape[0]
-        host = self._padded_raw(self.vectors, n_pad)
-        norms = np.linalg.norm(host[:n], axis=1, keepdims=True)
-        norms[norms == 0] = 1.0
-        host_norm = np.zeros_like(host)
-        host_norm[:n] = host[:n] / norms
-        return host, host_norm
-
     def _upload_plane(self, host: np.ndarray, dtype=None):
         """An f32 host plane onto the device, cast to the plane dtype on the
         host first (torch's CPU cast rounds to nearest even, as ml_dtypes
@@ -225,6 +206,28 @@ class VectorStore:
         if dtype is None:
             dtype = _DEVICE_DTYPES.get(self.fp_dtype, torch.float32)
         return torch.from_numpy(host).to(dtype).to(self.device).contiguous()
+
+    def _build_int8_plane(self, n_pad: int, normalize: bool):
+        """The master's rows (unit-norm where ``normalize``) quantized per
+        row to int8 on the host, as ``quantize_rows`` quantizes the JAX
+        package's whole f32 plane, a chunk of rows at a time
+        (:func:`_over_row_chunks`): (n_pad, d) int8 on the device, zero
+        past the rows, and (n_pad,) f32 scales, 0 on padding."""
+        from hyperdb_tpu_torch.ops.quantized import quantize_rows
+
+        n, d = self.vectors.shape
+        plane = torch.zeros((n_pad, d), dtype=torch.int8, device=self.device)
+        scales = np.zeros(n_pad, dtype=np.float32)
+
+        def place(s: int, out) -> None:
+            q_rows, sc = out
+            plane[s : s + sc.shape[0]].copy_(torch.from_numpy(q_rows))
+            scales[s : s + sc.shape[0]] = sc
+
+        _over_row_chunks(
+            0, n, d, lambda s, e: quantize_rows(_host_rows(self.vectors, s, e, normalize)), place
+        )
+        return plane, torch.from_numpy(scales).to(self.device)
 
     def _build_plane(self, vectors: np.ndarray, lo: int, hi: int, rows: int,
                      normalize: bool) -> torch.Tensor:
@@ -320,16 +323,11 @@ class VectorStore:
             row_sq=torch.from_numpy(row_sq).to(self.device),
         )
         if self.precision in ("int8", "int8-pure"):
-            from hyperdb_tpu_torch.ops.quantized import quantize_rows
-
-            host, host_norm = self._padded_planes(n_pad)
-            for plane, rows_key, scales_key in (
-                (host, "rows_q", "row_scales"),
-                (host_norm, "rowsn_q", "rown_scales"),
+            for rows_key, scales_key, normalize in (
+                ("rows_q", "row_scales", False),
+                ("rowsn_q", "rown_scales", True),
             ):
-                q_rows, scales = quantize_rows(plane)
-                dv[rows_key] = torch.from_numpy(q_rows).to(self.device)
-                dv[scales_key] = torch.from_numpy(scales).to(self.device)
+                dv[rows_key], dv[scales_key] = self._build_int8_plane(n_pad, normalize)
         self._device = dv
         return self._device
 
@@ -345,12 +343,22 @@ class VectorStore:
         and it is the dtype the stage-1 kernels take."""
         dv = self.device_view(source_indices)
         if "rows_bin" not in dv:
-            host_bin = (self.vectors.astype(np.float32) > 0).astype(np.float32)
-            n, d = host_bin.shape
-            padded = np.zeros((dv["n_pad"], d), dtype=np.float32)
-            padded[:n] = host_bin
-            dv["rows_bin"] = self._upload_plane(padded, torch.bfloat16)
-            dv["row_bin_sum"] = torch.from_numpy(np.sum(padded, axis=1)).to(self.device)
+            n, d = self.vectors.shape
+            plane = torch.zeros((dv["n_pad"], d), dtype=torch.bfloat16, device=self.device)
+            counts = np.zeros(dv["n_pad"], dtype=np.float32)
+
+            def work(s: int, e: int):
+                bits = self.vectors[s:e] > 0
+                return bits, np.count_nonzero(bits, axis=1).astype(np.float32)
+
+            def place(s: int, out) -> None:
+                bits, c = out
+                plane[s : s + c.shape[0]].copy_(torch.from_numpy(bits).to(torch.bfloat16))
+                counts[s : s + c.shape[0]] = c
+
+            _over_row_chunks(0, n, d, work, place)
+            dv["rows_bin"] = plane
+            dv["row_bin_sum"] = torch.from_numpy(counts).to(self.device)
         return dv
 
     def pearson_view(self, source_indices) -> dict:

@@ -1,9 +1,11 @@
-// Stage-1 grouped-max scans on Hopper, the mma.sync variant: the kernel for
-// the shapes the wgmma / TMA variant (gmax_wgmma.cu) does not take, which
-// are depths whose 128-query tile leaves no room for a ring of corpus tiles
-// in one block's shared memory (row bytes above 1536: d > 768 in bf16,
-// d > 1536 in int8). It is also the yardstick the other variant is timed
-// against. One kernel template serves the four Pallas kernels of
+// Stage-1 grouped-max scans on Hopper, the mma.sync kernel of the first
+// port. No route reaches it: both variants that serve the routes live in
+// gmax_wgmma.cu (a resident query tile for rows of up to 1536 bytes, and
+// the streaming kernel for deeper rows), and ops/gmax.py:kernel_variant
+// never picks this one. It stays as the yardstick they are timed against
+// ("ms_before"; gmax._launch(..., _variant="mma")) and as a second,
+// independently written kernel the tests hold them to, at every depth. One
+// kernel template serves the four Pallas kernels of
 // hyperdb_tpu/ops/pallas_gmax.py:
 //
 //   KIND_F        gmax_f, gmax_f_sub: s = q . v (bf16, f32 accumulation)
@@ -26,9 +28,10 @@
 // addressed in bytes: a 32-byte k-step holds 16 bf16 or 32 s8 values, and
 // the two mma shapes place the same bytes of a row in the same registers, so
 // one loader and one ldmatrix pattern feed both. What holds it to about a
-// fifth of the bound: every block reloads its query tile, one stage of loads
-// is in flight behind 32 mma a warp, and mma.sync does not reach the tensor
-// cores' full rate; gmax_wgmma.cu answers each.
+// fifth of the bound at d = 384 and a quarter at d = 4480: every block
+// reloads its query tile, one stage of loads is in flight behind 32 mma a
+// warp, and mma.sync does not reach the tensor cores' full rate;
+// gmax_wgmma.cu answers each.
 //
 // Shapes: q (b, d), v (n, d) of bf16 or s8, qaux (b,) f32 and vaux (n,) f32
 // (scales, or popcounts; unused by KIND_F), extra (n,) f32, all contiguous

@@ -37,18 +37,27 @@ of the (N, d) corpus; at b = 512 and N = 2^20, d = 384 that is 0.41 TFLOP
 against 0.8 GB, about 500 operations per byte, above the card's ~295 in
 bf16 (int8 at b = 1024: 2000 per byte against ~590). What a kernel then has
 to do is keep the tensor cores fed, and the (B, N) score matrix out of
-device memory. The ``wgmma`` variant (``csrc/gmax_wgmma.cu``) runs the
-product as ``wgmma.mma_async`` from shared memory: a block keeps its 128
-queries resident at full depth and streams the corpus through a ring of
-TMA-filled, 128-byte-swizzled tiles handed over by ``mbarrier``s, one
-persistent block per SM walking a range of corpus groups; each thread
-reduces its own columns of a group in registers and writes the maxes once.
-The ``mma`` variant (``csrc/gmax.cu``: ``mma.sync`` fed by ``cp.async``,
-one block per (query tile, group)) streams any depth and serves the shapes
-the first does not take. :func:`kernel_variant` is the rule: a row of at
-most 1536 bytes (12 boxes of 128 bytes: d <= 768 in bf16, d <= 1536 in
-int8) leaves room for the ring beside the query tile and goes to ``wgmma``;
-a deeper one goes to ``mma``. See the sources for the tiling.
+device memory. Three kernels, all hand-written for ``sm_90a``:
+
+- ``wgmma`` (``csrc/gmax_wgmma.cu``, ``gmax_wgmma_kernel``) runs the
+  product as ``wgmma.mma_async`` from shared memory: a block keeps its 128
+  queries resident at full depth and streams the corpus through a ring of
+  TMA-filled, 128-byte-swizzled tiles handed over by ``mbarrier``s, one
+  persistent block per SM walking a range of corpus groups; each thread
+  reduces its own columns of a group in registers and writes the maxes once.
+- ``wgmma_stream`` (the same file, ``gmax_stream_kernel``) takes rows too
+  deep for a resident query tile (the default 4480-d hybrid embedder's
+  plane): query and corpus boxes both stream through the ring, clusters of
+  two blocks share each 256-row corpus box by TMA multicast, and the
+  accumulators stay in registers over the whole depth.
+- ``mma`` (``csrc/gmax.cu``: ``mma.sync`` fed by ``cp.async``) is the
+  first port's kernel, kept only as the yardstick the other two are timed
+  against (``_launch(..., _variant="mma")``); no route reaches it.
+
+:func:`kernel_variant` is the rule: a row of at most 1536 bytes (12 boxes
+of 128 bytes: d <= 768 in bf16, d <= 1536 in int8) leaves room for the
+ring beside the query tile and goes to ``wgmma``; a deeper one goes to
+``wgmma_stream``. See the sources for the tiling.
 
 Each wrapper takes its plain PyTorch version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
@@ -75,7 +84,7 @@ from hyperdb_tpu_torch.ops.ranking import (
 GROUP = 128  # rows per group; the kernel's corpus block
 
 LAUNCHES = {"gmax_f_sub": 0, "gmax_f": 0, "gmax_int8": 0, "gmax_jaccard": 0}
-LAUNCHES_BY_VARIANT = {"wgmma": 0, "mma": 0}
+LAUNCHES_BY_VARIANT = {"wgmma": 0, "wgmma_stream": 0, "mma": 0}
 
 # the wgmma variant keeps a 128-query tile resident at full depth beside a
 # ring of corpus tiles: at most 12 boxes of 128 bytes of depth fit
@@ -86,19 +95,23 @@ NEG_INF = float("-inf")
 # the `kind` argument of the two C entry points
 _KIND_F, _KIND_INT8, _KIND_JACCARD = 0, 1, 2
 
-# variant -> (source under csrc/, C entry point); both take the same arguments
-_VARIANTS = {"wgmma": ("gmax_wgmma", "gmax_scan_wgmma"), "mma": ("gmax", "gmax_scan")}
+# variant -> (source under csrc/, C entry point); all take the same arguments
+_VARIANTS = {
+    "wgmma": ("gmax_wgmma", "gmax_scan_wgmma"),
+    "wgmma_stream": ("gmax_wgmma", "gmax_scan_wgmma_stream"),
+    "mma": ("gmax", "gmax_scan"),
+}
 
 
 def kernel_variant(n: int, d: int, itemsize: int) -> str:
     """Which variant scans an (n, d) corpus of ``itemsize``-byte elements:
     ``"wgmma"`` while a row is at most ``WGMMA_MAX_ROW_BYTES`` deep, else
-    ``"mma"``. Shapes neither kernel takes (n not a multiple of 128, a row
+    ``"wgmma_stream"``. Shapes no kernel takes (n not a multiple of 128, a row
     that is not a multiple of 16 bytes) raise."""
     row_bytes = d * itemsize
     if n <= 0 or n % GROUP or row_bytes <= 0 or row_bytes % 16:
         raise ValueError(f"unsupported shapes: corpus ({n}, {d}) of {itemsize}-byte elements")
-    return "wgmma" if row_bytes <= WGMMA_MAX_ROW_BYTES else "mma"
+    return "wgmma" if row_bytes <= WGMMA_MAX_ROW_BYTES else "wgmma_stream"
 
 
 def _scan_fn(variant: str):
@@ -313,7 +326,8 @@ def gmax_jaccard(queries, vectors, q_sum, aux, extra):
     Returns: (B, N/128) f32 group maxes, bitwise those of
     :func:`gmax_jaccard_plain` (exact integer counts, IEEE division; the
     ``wgmma`` variant divides without a branch, which rounds as IEEE division
-    does for counts below 2^11, all its depths allow).
+    does for counts below 2^11, all its depths allow; ``wgmma_stream``
+    divides with IEEE division at every depth).
     """
     if queries.device.type == "cpu":
         return gmax_jaccard_plain(queries, vectors, q_sum, aux, extra)

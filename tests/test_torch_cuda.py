@@ -8,11 +8,13 @@ moves scores of magnitude <= 1 by a few f32 ulps (~1e-7 each); -inf positions mu
 ``gmax_int8`` and ``gmax_jaccard`` must EQUAL their plain versions: their
 products are exact integers and their epilogues are the same sequence of
 IEEE f32 operations, with no multiply-add contracted.
-The stage-1 scans exist in two variants (``wgmma`` fed by TMA, ``mma.sync``
-fed by ``cp.async``), chosen by ``gmax.kernel_variant``: the shapes below
-stress the first (ragged query tiles, depths that end inside a 128-byte
-box, the deepest resident query tile and one past it) and hold each variant
-to the plain versions and to the other.
+The stage-1 scans exist in two variants (``wgmma`` with a resident query
+tile, ``wgmma_stream`` for deeper rows), chosen by ``gmax.kernel_variant``,
+beside the first port's ``mma.sync`` kernel, which no route reaches: the
+shapes below stress both (ragged query tiles, depths that end inside a
+128-byte box, the deepest resident query tile and one past it, queries
+fewer than a cluster's two tiles, group counts that a 256-row item does not
+divide) and hold each variant to the plain versions and to ``mma.sync``.
 ``gmax_l1`` and ``gmax_l1t`` sum d terms |v - q| in f32 in another order
 than torch's ``sum(-1)``: rtol 1e-5 plus atol 1e-4 on distances of
 magnitude ~d; -inf / +inf positions must match exactly.
@@ -361,6 +363,13 @@ STRESS_D = [40, 64, 128, 384, 392, 768, 1024]  # 392: a ragged box; 1024: past t
 STRESS_N = [256, 1024, 4096]
 STRESS = [
     (b, STRESS_N[(i + j) % 3], d) for i, b in enumerate(STRESS_B) for j, d in enumerate(STRESS_D)
+] + [
+    # the streaming variant: ragged depths (776 and 1032 end inside a box;
+    # 4480 is the default hybrid embedder's width), batches under one
+    # cluster's two 128-query tiles (1, 64) and an odd tile count (640: the
+    # last cluster's second block holds no query), and group counts that a
+    # 256-row item does not divide (384, 640, 1152: a last item of one group)
+    (129, 384, 776), (64, 1152, 1032), (300, 2048, 4480), (1, 256, 4480), (640, 640, 1024),
 ]
 
 
@@ -403,7 +412,7 @@ def test_float_scans_over_stress_shapes(dev, b, n, d):
     rule picks, against the plain versions and against the other variant."""
     q, v, extra = _stress_inputs(dev, b, n, d, seed=b + d)
     variant = G.kernel_variant(n, d, 2)
-    assert variant == ("wgmma" if d <= 768 else "mma")
+    assert variant == ("wgmma" if d <= 768 else "wgmma_stream")
     before = dict(G.LAUNCHES_BY_VARIANT)
     gm, sm = G.gmax_f_sub(q, v, extra, sub=32, dual=False)
     gm_d, sm_d = G.gmax_f_sub(q, v, extra, sub=32, dual=True)
@@ -427,14 +436,15 @@ def test_float_scans_over_stress_shapes(dev, b, n, d):
 
 @pytest.mark.parametrize("sub", [8, 16, 32, 64])
 @pytest.mark.parametrize("dual", [True, False])
-@pytest.mark.parametrize("b,n,d", [(129, 1024, 392), (640, 4096, 384)])
+@pytest.mark.parametrize("b,n,d", [(129, 1024, 392), (640, 4096, 384), (129, 384, 1032)])
 def test_wgmma_subgroups(dev, sub, dual, b, n, d):
     q, v, extra = _stress_inputs(dev, b, n, d, seed=sub)
-    before = G.LAUNCHES_BY_VARIANT["wgmma"]
+    variant = G.kernel_variant(n, d, 2)  # wgmma_stream at d = 1032
+    before = G.LAUNCHES_BY_VARIANT[variant]
     gm, sm = G.gmax_f_sub(q, v, extra, sub=sub, dual=dual)
     gm_other, _ = G.gmax_f_sub(q, v, extra, sub=sub, dual=not dual)
     torch.cuda.synchronize()
-    assert G.LAUNCHES_BY_VARIANT["wgmma"] == before + 2
+    assert G.LAUNCHES_BY_VARIANT[variant] == before + 2
     want_gm, want_sm = G.gmax_f_sub_plain(q, v, extra, sub=sub)
     _same(sm, want_sm)
     _same(gm, want_gm)
@@ -471,7 +481,8 @@ def test_wgmma_refuses_a_depth_past_its_rule(dev):
 @pytest.mark.parametrize(
     "b,n,d",
     [(1, 256, 64), (63, 1024, 48), (77, 4096, 128), (129, 1024, 384), (640, 4096, 400),
-     (128, 256, 768), (64, 1024, 1536), (129, 256, 1552), (640, 1024, 2048)],
+     (128, 256, 768), (64, 1024, 1536), (129, 256, 1552), (640, 1024, 2048),
+     (77, 384, 4480), (129, 1152, 1664), (640, 640, 2048), (1, 256, 1552)],
 )
 def test_int8_scan_over_stress_shapes(dev, b, n, d):
     rng = np.random.default_rng(b + d)
@@ -490,7 +501,7 @@ def test_int8_scan_over_stress_shapes(dev, b, n, d):
     )
     v_t, sc_t = torch.from_numpy(v_i8).to(dev), torch.from_numpy(sc).to(dev)
     variant = G.kernel_variant(n, d, 1)
-    assert variant == ("wgmma" if d <= 1536 else "mma")
+    assert variant == ("wgmma" if d <= 1536 else "wgmma_stream")
     before = G.LAUNCHES_BY_VARIANT[variant]
     got = G.gmax_int8(q_i8, q_scale, v_t, sc_t, extra)
     torch.cuda.synchronize()
@@ -503,7 +514,9 @@ def test_int8_scan_over_stress_shapes(dev, b, n, d):
 
 @pytest.mark.parametrize(
     "b,n,d", [(1, 256, 64), (63, 1024, 40), (129, 4096, 384), (640, 1024, 392), (77, 256, 768),
-              (128, 1024, 1024)],
+              # deep rows on wgmma_stream: at d = 4480 rows of density 1/2 have
+              # unions near 3360, past the 2^11 that count_div is exact below
+              (128, 1024, 1024), (64, 384, 2560), (300, 1152, 4480), (129, 256, 4480)],
 )
 def test_jaccard_scan_over_stress_shapes(dev, b, n, d):
     rng = np.random.default_rng(b + d)

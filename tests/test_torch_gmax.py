@@ -194,15 +194,18 @@ def test_grouped_gmax_refuses_out_of_contract(qdt, vdt, n, k):
         (4096, 392, 2, "wgmma"),  # 784 bytes: a ragged seventh box
         (4096, 768, 2, "wgmma"),  # 1536 bytes: the deepest resident query tile
         (4096, 1536, 1, "wgmma"),  # the same depth in int8
-        (4096, 776, 2, "mma"),  # one 16-byte step past it
-        (4096, 1024, 2, "mma"),
-        (4096, 1552, 1, "mma"),
-        (4096, 4096, 1, "mma"),
+        (4096, 776, 2, "wgmma_stream"),  # one 16-byte step past it
+        (4096, 1024, 2, "wgmma_stream"),
+        (4096, 1552, 1, "wgmma_stream"),
+        (4096, 4096, 1, "wgmma_stream"),
+        (1 << 20, 4480, 2, "wgmma_stream"),  # the default hybrid embedder's bf16 plane: 70 boxes
+        (1 << 20, 4480, 1, "wgmma_stream"),  # its int8 plane: 35 boxes
     ],
 )
 def test_kernel_variant_rule(n, d, itemsize, want):
     """The one rule on shapes: a row of at most 12 boxes of 128 bytes goes to
-    the wgmma variant, a deeper one to mma.sync; the batch does not matter."""
+    the resident-query wgmma variant, a deeper one to the streaming variant;
+    the batch does not matter and no shape goes to mma.sync."""
     assert G.kernel_variant(n, d, itemsize) == want
     assert (d * itemsize <= G.WGMMA_MAX_ROW_BYTES) == (want == "wgmma")
 
@@ -229,10 +232,114 @@ def test_variant_counter_and_entry_points():
     from hyperdb_tpu_torch.ops import cuda_build
 
     assert set(G.LAUNCHES) == {"gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard"}
-    assert set(G.LAUNCHES_BY_VARIANT) == set(G._VARIANTS) == {"wgmma", "mma"}
+    assert set(G.LAUNCHES_BY_VARIANT) == set(G._VARIANTS) == {"wgmma", "wgmma_stream", "mma"}
     for source, entry in G._VARIANTS.values():
         assert source in cuda_build.sources()
         assert f'extern "C" int {entry}(' in (cuda_build.CSRC / f"{source}.cu").read_text()
     before = dict(G.LAUNCHES), dict(G.LAUNCHES_BY_VARIANT)
     G.gmax_f_sub(torch.ones(8, 16).bfloat16(), torch.ones(256, 16).bfloat16(), torch.zeros(256))
     assert (G.LAUNCHES, G.LAUNCHES_BY_VARIANT) == before
+
+
+# Deep rows (the streaming variant's shapes): the JAX kernels in interpret
+# mode against the port's plain versions, which the streaming kernel is held
+# to on the card.
+
+
+def test_gmax_f_sub_deep_rows_match_pallas():
+    """d = 4480, the default hybrid embedder's width. Tolerance 1e-5 absolute
+    on unit-norm rows: both sides sum the same exact bf16 products in f32 in
+    different orders; at d = 4480 each order moves a score of magnitude <= 1
+    by some 1e-7."""
+    b, n, d = 8, 256, 4480
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    v[5] = v[3]
+    v[77] = np.nan
+    q[0] = v[3]
+    mask = rng.random(n) < 0.9
+    mask[128:] = False  # the second group masked
+    rec = (rng.random(n) * 0.05).astype(np.float32)
+    (jq, jv, jm, jr), (tq, tv, tm, tr) = _both(q, v, mask, rec)
+    jextra = PG.make_extra(n, jm, jr)
+    textra = G.make_extra(n, tm, tr)
+    want_gm, want_sm = PG.gmax_f_sub(jq, jv, jextra, sub=32, interpret=True, dual=True)
+    gm, sm = G.gmax_f_sub(tq, tv, textra, sub=32, dual=True)
+    _same(sm, want_sm)
+    _same(gm, want_gm)
+    assert np.isneginf(gm[:, 1].numpy()).all()
+    assert G.kernel_variant(n, d, 2) == "wgmma_stream"
+
+
+def test_gmax_int8_deep_rows_equal_pallas():
+    """d = 1664 (13 boxes of 128 bytes, one past the resident tile). The
+    products are exact integers on both sides; XLA on the CPU may contract
+    the rescale's multiply and add into one fused multiply-add, which rounds
+    once where the port rounds twice: within 2.5e-7 relative (two f32 ulps).
+    The port's plain version, which the kernel must equal on the card, is
+    held EQUAL to the same IEEE operations in numpy."""
+    from hyperdb_tpu.ops.quantized import _quantize_device as jax_quantize
+    from hyperdb_tpu.ops.quantized import quantize_rows as jax_quantize_rows
+    from hyperdb_tpu_torch.ops.quantized import _quantize_device, quantize_rows
+
+    b, n, d = 8, 256, 1664
+    rng = np.random.default_rng(7)
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    v[5] = 0.0  # a zero-scale row: 0 + extra
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    mask[:128] = False  # the first group masked
+    rec = (rng.random(n) * 0.05).astype(np.float32)
+    v_i8, v_sc = quantize_rows(v)
+    jv_i8, jv_sc = jax_quantize_rows(v)
+    np.testing.assert_array_equal(v_i8, jv_i8)
+    np.testing.assert_array_equal(v_sc, jv_sc)
+    q_i8, q_sc = _quantize_device(torch.from_numpy(q))
+    jq_i8, jq_sc = jax_quantize(jnp.asarray(q))
+    np.testing.assert_array_equal(q_i8.numpy(), np.asarray(jq_i8))
+    np.testing.assert_array_equal(q_sc.numpy(), np.asarray(jq_sc))
+    jextra = PG.make_extra(n, jnp.asarray(mask), jnp.asarray(rec))
+    textra = G.make_extra(n, torch.from_numpy(mask), torch.from_numpy(rec))
+    want = PG.gmax_int8(
+        jq_i8, jq_sc, jnp.asarray(jv_i8), jnp.asarray(jv_sc), jextra, interpret=True
+    )
+    got = G.gmax_int8(q_i8, q_sc, torch.from_numpy(v_i8), torch.from_numpy(v_sc), textra)
+    np.testing.assert_array_equal(np.isneginf(got.numpy()), np.isneginf(np.asarray(want)))
+    live = ~np.isneginf(np.asarray(want))
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live], rtol=2.5e-7, atol=0)
+    dot = (q_i8.numpy().astype(np.int64) @ v_i8.T.astype(np.int64)).astype(np.float32)
+    s = dot * (q_sc.numpy()[:, None] * v_sc[None, :]) + textra.numpy()[None, :]
+    np.testing.assert_array_equal(got.numpy(), s.reshape(b, n // 128, 128).max(-1))
+    assert np.isneginf(got[:, 0].numpy()).all()
+    assert G.kernel_variant(n, d, 1) == "wgmma_stream"
+
+
+def test_gmax_jaccard_deep_rows_equal_pallas():
+    """0/1 rows of d = 2560 whose unions pass 2048 (dense rows and queries),
+    with an empty row and an empty query (0/0 -> -inf): exact integer counts
+    and one IEEE division on both sides, so equal."""
+    b, n, d = 8, 256, 2560
+    rng = np.random.default_rng(8)
+    vb = (rng.random((n, d)) < 0.85).astype(np.float32)
+    qb = (rng.random((b, d)) < 0.85).astype(np.float32)
+    vb[5] = 0.0
+    qb[0] = 0.0
+    mask = rng.random(n) < 0.9
+    union = qb.sum(1)[:, None] + vb.sum(1)[None, :] - qb @ vb.T
+    assert union[1:].max() > 2048  # past the range the wgmma variant's division covers
+    jq, jv = jnp.asarray(qb, dtype=jnp.bfloat16), jnp.asarray(vb, dtype=jnp.bfloat16)
+    jextra = PG.make_extra(n, jnp.asarray(mask))
+    want = PG.gmax_jaccard(
+        jq, jv, jnp.asarray(qb.sum(1, keepdims=True)), jnp.asarray(vb.sum(1)), jextra,
+        interpret=True,
+    )
+    textra = G.make_extra(n, torch.from_numpy(mask))
+    got = G.gmax_jaccard(
+        torch.from_numpy(qb).bfloat16(), torch.from_numpy(vb).bfloat16(),
+        torch.from_numpy(qb.sum(1, keepdims=True)), torch.from_numpy(vb.sum(1)), textra,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert G.kernel_variant(n, d, 2) == "wgmma_stream"

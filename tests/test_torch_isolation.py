@@ -200,9 +200,11 @@ def test_missing_library_file_raises(no_kernel_library, monkeypatch, tmp_path):
 
 def test_build_flags_and_sources():
     # the four stage-1 scans (gmax_f_sub, gmax_f, gmax_int8, gmax_jaccard) are
-    # instantiations of one template in each of two variants: gmax_wgmma.cu
-    # (wgmma fed by TMA) and gmax.cu (mma.sync fed by cp.async); l1.cu holds
-    # the two manhattan kernels
+    # instantiations of one template in each of the two variants of
+    # gmax_wgmma.cu (wgmma fed by TMA: a resident query tile, and streamed
+    # rows over clusters sharing the corpus by multicast), and of gmax.cu
+    # (mma.sync fed by cp.async, the yardstick); l1.cu holds the two
+    # manhattan kernels
     assert cuda_build.sources() == ["gmax", "gmax_wgmma", "l1"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     # no fast-math: the jaccard division and the NaN scrub must be IEEE
@@ -214,6 +216,9 @@ def test_build_flags_and_sources():
     for needle in (
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
         "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8", "multicast::cluster",
+        'extern "C" int gmax_scan_wgmma_stream(',
         "cp.async.bulk.tensor", "mbarrier", "setmaxnreg", "const __grid_constant__ CUtensorMap",
         "cuTensorMapEncodeTiled", "__fmul_rn", "KIND_JACCARD",
         "hyperdb_tpu/ops/pallas_gmax.py", "Bound on the H100: operations",
@@ -227,15 +232,17 @@ def test_build_flags_and_sources():
     assert cuda_build.library_path("gmax_wgmma").name.startswith("libgmax_wgmma-")
 
 
-@pytest.mark.parametrize("variant", ["wgmma", "mma"])
+@pytest.mark.parametrize("variant", ["wgmma", "wgmma_stream", "mma"])
 def test_either_variant_raises_without_kernel(no_kernel_library, monkeypatch, variant):
-    """Both variants reach the loader and raise when their library cannot be
-    built, by the shape rule and when forced; neither gives way to the other
-    or to a plain version."""
+    """Every variant reaches the loader and raises when its library cannot
+    be built: ``wgmma`` and ``wgmma_stream`` by the shape rule and when
+    forced, ``mma`` (the yardstick, which no shape reaches) when forced;
+    none gives way to another or to a plain version."""
     for name in ("gmax_f_plain", "gmax_f_sub_plain", "gmax_int8_plain", "gmax_jaccard_plain"):
         monkeypatch.setattr(G, name, lambda *a, **kw: pytest.fail("plain version"))
     d = 128 if variant == "wgmma" else 1024  # 256- and 2048-byte rows
-    assert G.kernel_variant(1024, d, 2) == variant
+    routed = G.kernel_variant(1024, d, 2)
+    assert routed == ("wgmma" if variant == "wgmma" else "wgmma_stream")
     loaded = []
     real_load = cuda_build.load
     monkeypatch.setattr(cuda_build, "load", lambda name: loaded.append(name) or real_load(name))
@@ -253,10 +260,10 @@ def test_either_variant_raises_without_kernel(no_kernel_library, monkeypatch, va
     v8 = torch.empty((1024, 2 * d), dtype=torch.int8, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         G.gmax_int8(q8, torch.empty((128,), device="meta"), v8, extra, extra)
-    source = G._VARIANTS[variant][0]
-    assert loaded == [source] * 4
-    # forced: the other variant's loader is reached whatever the rule says
-    other = "mma" if variant == "wgmma" else "wgmma"
+    assert loaded == [G._VARIANTS[routed][0]] * 4
+    assert G._VARIANTS["mma"][0] not in loaded  # no shape reaches the yardstick
+    # forced: another variant's loader is reached whatever the rule says
+    other = {"wgmma": "wgmma_stream", "wgmma_stream": "wgmma", "mma": "mma"}[variant]
     sm = torch.empty((128, 32), dtype=torch.float32, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         G._launch(G._KIND_F, q, v, extra, sm, None, 32, _variant=other)

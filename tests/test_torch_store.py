@@ -108,6 +108,31 @@ def test_int8_views_bit_equal(dtype, precision):
         assert tdv["rows_norm"].shape == (1024, 48)
 
 
+@pytest.mark.parametrize("precision", ["int8", "int8-pure"])
+def test_int8_views_bit_equal_over_chunks(monkeypatch, precision):
+    """The int8 planes are quantized a chunk of rows at a time on several
+    threads: at 7 rows a chunk (143 chunks and a ragged last one) they are
+    the JAX package's whole-plane quantization bit for bit."""
+    monkeypatch.setattr(TS, "_BUILD_CHUNK_ELEMS", 48 * 7)
+    js, ts, src = _stores(np.float16, precision)
+    jdv, tdv = js.device_view(src), ts.device_view(src)
+    for key in ("rows_q", "rowsn_q", "row_scales", "rown_scales"):
+        np.testing.assert_array_equal(tdv[key].numpy(), np.asarray(jdv[key]))
+
+
+def test_binary_view_bit_equal_over_chunks(monkeypatch):
+    """The same for the 0/1 plane and its popcounts."""
+    monkeypatch.setattr(TS, "_BUILD_CHUNK_ELEMS", 48 * 7)
+    js, ts, src = _stores(np.float16, "auto")
+    jbv, tbv = js.binary_view(src), ts.binary_view(src)
+    np.testing.assert_array_equal(
+        tbv["rows_bin"].view(torch.int16).numpy().view(np.uint16),
+        np.asarray(jbv["rows_bin"]).view(np.uint16),
+    )
+    np.testing.assert_array_equal(tbv["row_bin_sum"].numpy(), np.asarray(jbv["row_bin_sum"]))
+    assert not tbv["rows_bin"][1000:].any() and not tbv["row_bin_sum"][1000:].any()
+
+
 @pytest.mark.parametrize("dtype", [np.float16, np.float32])
 def test_binary_and_pearson_views_bit_equal(dtype):
     js, ts, src = _stores(dtype, "auto")
