@@ -233,6 +233,31 @@ Phases, one or a few lines each on standard output:
    library call (``torch.mm`` or ``torch._int_mm`` plus the epilogue), with
    the bytes it reckons to move from device memory and from L2.
 
+18. path L, the drop-in package ``hyperdb_torch`` (after path E, so the
+   encoder is loaded and the host library built). L1: the
+   reference README's quick start (``HyperDB(documents)`` over the 151
+   documents of ``demo/creatures.jsonl`` with the default embedder, a
+   ``.pickle.gz`` save and load, a text query top-5) through
+   ``hyperdb_torch.HyperDB`` on the card, ids and documents equal to the
+   same flow through ``hyperdb_tpu_torch.HyperDB`` and scores within 1e-6;
+   after the vectors constructor the compat class's metadata index is empty
+   (a metadata filter answers nothing) and the engine's holds all 151. L2:
+   the JAX package's ``demo/creatures_hyperdb.pickle.gz`` loaded through the
+   compat class on the card, 8 seeded rows each first for its own vector.
+   L3: the seven scoring functions of ``hyperdb_torch.ranking_algorithm`` on
+   the card over path A's 1M x 384 rows (one random query), each within its
+   ``L3_ATOL`` of a float64 NumPy reference by the reference's formulas,
+   euclidean distances within 1e-6 relative, and
+   ``hyperDB_ranking_algorithm_sort`` (cosine top-10 for the random query
+   and for row 4's vector, tied with row 17) tie-aware equal to it; each
+   call timed on the host clock (median of 3, the upload included). L4:
+   ``hyperdb_torch.HyperDB`` over path A's corpus and documents with
+   ``metadata_keys`` (index left empty) at b = 512: one ``gmax_f_sub``
+   launch on ``wgmma`` (counters set to 0 just before), ids tie-aware equal
+   to the exact reference and to section 3's ``hyperdb_tpu_torch`` answer,
+   ms/batch and q/s beside section 3's. Files go under ``build/smoke_dropin/``
+   and are removed.
+
 Then a JSON line describing every kernel (path K's as "<name> d=4480"), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no last line. It needs one CUDA device and refuses to run
@@ -339,6 +364,25 @@ K_BIG_BATCH = 4096
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOAD_TOOL = os.path.join(ROOT, "hyperdb_tpu_torch", "tools", "serve_load.py")
 NEG_INF = float("-inf")
+# path L: the drop-in package ``hyperdb_torch``. L1/L2 read the demo data (the
+# 151 documents, and the JAX package's pickle of them); L3 scores path A's rows
+# with the reference-shaped functions against a float64 NumPy reference, each
+# function within its tolerance (float32 scores):
+L_DEMO = os.path.join(ROOT, "demo", "creatures.jsonl")
+L_PICKLE = os.path.join(ROOT, "demo", "creatures_hyperdb.pickle.gz")
+L_PICKLE_ROWS = 8
+L_FLOW_TOP_K = 5
+L_FLOW_ATOL = 1e-6  # the same flow through two classes on one card
+L3_REPS = 3
+L3_ATOL = {
+    "dot_product": 2e-4,  # sums of 384 f32 products, |score| up to ~100
+    "cosine_similarity": 1e-6,
+    "euclidean_metric": 1e-8,  # f64 expansion; scores ~0.04, half an ulp 1.9e-9
+    "manhattan_distance": 1e-8,  # scores ~2e-3 from distances ~430
+    "jaccard_similarity": 1e-7,  # exact counts, one f32 division (<= 1 ulp)
+    "pearson_correlation": 1e-6,
+    "hamming_distance": 0.0,  # exact counts
+}
 
 
 def log(msg: str) -> None:
@@ -4159,6 +4203,246 @@ def path_deep(kernels, seed: int, card: str) -> None:
     log(f"path K: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- path L: drop-in
+
+
+def demo_documents() -> list:
+    with open(L_DEMO) as f:
+        return [json.loads(line) for line in f]
+
+
+def readme_flow(cls, where: str):
+    """The reference README's quick start through ``cls`` on the card: build
+    from the demo documents (the default embedder), save a ``.pickle.gz``,
+    load it back, one text query top-5."""
+    db = cls(demo_documents())
+    path = os.path.join(where, f"{cls.__module__}.pickle.gz")
+    db.save(path)
+    db.load(path)
+    return db, db.query("Likes to sleep.", top_k=L_FLOW_TOP_K)
+
+
+def phase_drop_in_flows(card: str) -> None:
+    """L1: the README flow through the compat class and the engine, the
+    quirk after the vectors constructor; L2: the JAX package's pickle of the
+    demo loaded through the compat class, each of 8 rows first for its own
+    vector."""
+    import shutil
+    from pathlib import Path
+
+    import hyperdb_torch
+    import hyperdb_tpu_torch
+
+    where = Path(ROOT) / "build" / "smoke_dropin"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    t = time.perf_counter()
+    compat, got = readme_flow(hyperdb_torch.HyperDB, str(where))
+    t_compat = time.perf_counter() - t
+    t = time.perf_counter()
+    fixed, want = readme_flow(hyperdb_tpu_torch.HyperDB, str(where))
+    t_fixed = time.perf_counter() - t
+    if compat.device != card_device() or len(got) != L_FLOW_TOP_K:
+        raise AssertionError(f"L1: the compat flow ran on {compat.device} with {len(got)} answers")
+    err = max(abs(g[1] - w[1]) for g, w in zip(got, want))
+    if [g[2] for g in got] != [w[2] for w in want] or [g[0] for g in got] != [w[0] for w in want]:
+        raise AssertionError(f"L1: compat ids {[g[2] for g in got]} != engine's {[w[2] for w in want]}")
+    if err > L_FLOW_ATOL or not all(np.isfinite(g[1]) for g in got):
+        raise AssertionError(f"L1: compat scores off the engine's by {err:.3g} > {L_FLOW_ATOL}")
+    log(f"path L1 README flow (build, pickle.gz save and load, text query top-{L_FLOW_TOP_K}) "
+        f"over {len(compat.documents)} documents, {compat.dim}-d vectors on {compat.device}: "
+        f"ids {[g[2] for g in got]} equal to hyperdb_tpu_torch's, score err {err:.3g}; "
+        f"compat {t_compat:.2f} s, engine {t_fixed:.2f} s [{card}]")
+
+    vectors = np.asarray(fixed.vectors)
+    weakness = compat.documents[0]["info"]["weakness"]
+    flt = [("metadata", {"info.weakness": weakness})]
+    (n_compat, r_compat), (n_fixed, r_fixed) = [
+        (len(db._metadata_index), db.query(vectors[0], top_k=3, filters=flt))
+        for db in (cls(documents=demo_documents(), vectors=vectors, metadata_keys=["info.weakness"])
+                   for cls in (hyperdb_torch.HyperDB, hyperdb_tpu_torch.HyperDB))
+    ]
+    if n_compat != 0 or r_compat != [] or n_fixed != len(vectors) or r_fixed[0][2] != 0:
+        raise AssertionError(f"L1 quirk: compat {n_compat} entries {r_compat}, engine {n_fixed} entries")
+    if any(r[0]["info"]["weakness"] != weakness for r in r_fixed):
+        raise AssertionError("L1 quirk: the engine's metadata filter let another weakness through")
+    log(f"path L1 quirk after the vectors constructor: metadata index {n_compat} entries in "
+        f"hyperdb_torch.HyperDB (filter answers {len(r_compat)}), {n_fixed} in "
+        f"hyperdb_tpu_torch.HyperDB (filter answers {len(r_fixed)}, first id {r_fixed[0][2]})")
+    shutil.rmtree(where, ignore_errors=True)
+
+    t = time.perf_counter()
+    db = hyperdb_torch.HyperDB()
+    db.load(L_PICKLE)
+    t_load = time.perf_counter() - t
+    v = np.asarray(db.vectors)
+    rows = sorted(np.random.default_rng(151).choice(len(v), L_PICKLE_ROWS, replace=False).tolist())
+    firsts = []
+    for i in rows:
+        res = db.query(v[i], top_k=2)
+        if res[0][2] != i or not res[0][1] > res[1][1]:
+            raise AssertionError(f"L2: row {i} of the JAX pickle did not come first: {res}")
+        firsts.append(res[0][1])
+    log(f"path L2 JAX-written {os.path.basename(L_PICKLE)} ({v.shape[0]} x {v.shape[1]} {v.dtype}) "
+        f"through hyperdb_torch.HyperDB on {db.device} in {t_load:.2f} s: rows {rows} each first "
+        f"for its own vector, scores {min(firsts):.7f}-{max(firsts):.7f} [{card}]")
+    del compat, fixed, db
+    free_device("path L1-L2")
+
+
+def compat_references(corpus: np.ndarray, q: np.ndarray, names=tuple(L3_ATOL),
+                      chunk: int = 1 << 16) -> dict:
+    """The reference-shaped scores ``names`` of one query over ``corpus`` in
+    float64 NumPy, by the reference's own formulas (difference forms for
+    euclidean and manhattan, binarization by ``> 0``), a row chunk a
+    thread."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n, d = corpus.shape
+    q64 = q.astype(np.float64)
+    qb = (q64 > 0).astype(np.float64)
+    qc = q64 - q64.mean()
+    out = {name: np.empty(n) for name in names}
+
+    def one(a):
+        b = min(a + chunk, n)
+        v = corpus[a:b].astype(np.float64)
+        dot = v @ q64
+        norms = np.sqrt(np.einsum("ij,ij->i", v, v))
+        norms[norms == 0] = 1
+        out["cosine_similarity"][a:b] = dot / norms / np.linalg.norm(q64)
+        if set(names) == {"cosine_similarity"}:
+            return
+        out["dot_product"][a:b] = dot
+        diff = v - q64
+        out["euclidean_metric"][a:b] = 1.0 / (1.0 + np.sqrt(np.einsum("ij,ij->i", diff, diff)))
+        out["manhattan_distance"][a:b] = 1.0 / (1.0 + np.abs(diff).sum(1))
+        vb = (v > 0).astype(np.float64)
+        inter, vsum = vb @ qb, vb.sum(1)
+        out["jaccard_similarity"][a:b] = inter / (vsum + qb.sum() - inter)
+        out["hamming_distance"][a:b] = d - (vsum + qb.sum() - 2.0 * inter)
+        vc = v - v.mean(1, keepdims=True)
+        out["pearson_correlation"][a:b] = (vc @ qc) / (
+            np.sqrt(np.einsum("ij,ij->i", vc, vc)) * np.sqrt(qc @ qc)
+        )
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        list(pool.map(one, range(0, n, chunk)))
+    return out
+
+
+def check_sorted(name, ids, vals, ref: np.ndarray, k: int, atol: float) -> tuple[int, float]:
+    """Tie-aware, for one query: ``k`` distinct ids whose reference scores,
+    and the returned scores, lie within ``atol`` of the reference's top-k at
+    every rank. Returns the ids off the reference's stable order and the
+    largest score error."""
+    want = np.argsort(-ref, kind="stable")[:k]
+    ids, vals = np.asarray(ids), np.asarray(vals, dtype=np.float64)
+    if ids.shape != (k,) or len(set(ids.tolist())) != k or not np.isfinite(vals).all():
+        raise AssertionError(f"{name}: ids of shape {ids.shape} not {k} distinct, or scores not finite")
+    err = max(float(np.abs(vals - ref[want]).max()), float(np.abs(ref[ids] - ref[want]).max()))
+    if err > atol:
+        raise AssertionError(f"{name}: top-{k} off the f64 reference by {err:.3g} > {atol}")
+    return int((ids != want).sum()), err
+
+
+def phase_drop_in_metrics(corpus: np.ndarray, seed: int, card: str) -> None:
+    """L3: the seven reference-shaped functions of ``hyperdb_torch`` and its
+    sort on the card over path A's rows, each held against the float64
+    reference and timed on the host clock (numpy in, numpy out: the upload
+    of the float32 rows included)."""
+    import hyperdb_torch.ranking_algorithm as TR
+
+    t = time.perf_counter()
+    v32 = corpus.astype(np.float32)
+    q = np.random.default_rng(seed + 120).standard_normal(DIM, dtype=np.float32)
+    refs = compat_references(corpus, q)
+    log(f"path L3 float64 references of {len(L3_ATOL)} functions over {v32.shape}: "
+        f"{time.perf_counter() - t:.1f} s")
+    for name, atol in L3_ATOL.items():
+        fn = getattr(TR, name)
+        times, got = [], None
+        for _ in range(L3_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = fn(v32, q, device="cuda")
+            times.append((time.perf_counter() - t) * 1e3)
+        if got.shape != (N_DOCS,) or got.dtype != np.float32 or not np.isfinite(got).all():
+            raise AssertionError(f"L3 {name}: {got.shape} {got.dtype}, finite {np.isfinite(got).all()}")
+        err = float(np.abs(got - refs[name]).max())
+        if err > atol:
+            raise AssertionError(f"L3 {name}: off the f64 reference by {err:.3g} > {atol}")
+        log(f"path L3 {name}(1 query, {N_DOCS} x {DIM}) on the card: max err {err:.3g} "
+            f"(tol {atol}), ms={statistics.median(times):.3f} (median of {L3_REPS}) [{card}]")
+    dist = TR.euclidean_metric(v32, q, get_similarity_score=False, device="cuda")
+    want = 1.0 / refs["euclidean_metric"] - 1.0
+    rel = float((np.abs(dist - want) / want).max())
+    if rel > 1e-6:
+        raise AssertionError(f"L3 euclidean distances off the f64 difference form by {rel:.3g}")
+    log(f"path L3 euclidean_metric(get_similarity_score=False): relative err {rel:.3g} (tol 1e-6)")
+    for label, qq, ref in (
+        ("random query", q, refs["cosine_similarity"]),
+        ("row 4's vector (tied with row 17)", corpus[4].astype(np.float32), None),
+    ):
+        if ref is None:
+            ref = compat_references(corpus, qq, names=("cosine_similarity",))["cosine_similarity"]
+        times = []
+        for _ in range(L3_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ids, vals = TR.hyperDB_ranking_algorithm_sort(v32, qq, top_k=TOP_K, device="cuda")
+            times.append((time.perf_counter() - t) * 1e3)
+        swaps, err = check_sorted(f"L3 sort, {label}", ids, vals, ref, TOP_K, L3_ATOL["cosine_similarity"])
+        log(f"path L3 hyperDB_ranking_algorithm_sort cosine top-{TOP_K}, {label}: ids tie-aware "
+            f"equal to the f64 reference ({swaps} tied swaps, err {err:.3g}), first ids "
+            f"{np.asarray(ids)[:2].tolist()}, ms={statistics.median(times):.3f} [{card}]")
+    del v32
+
+
+def phase_drop_in_batch(corpus, docs, main, kernels, card: str) -> None:
+    """L4: ``hyperdb_torch.HyperDB`` over path A's corpus answers the main
+    path's b = 512 block through ``gmax_f_sub``: one launch on ``wgmma``,
+    ids tie-aware equal to the engine's answer and to the exact reference."""
+    import hyperdb_torch
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    q512, want_ids, want_vals, main_ms = main
+    t = time.perf_counter()
+    db = hyperdb_torch.HyperDB(documents=docs, vectors=corpus, fp_precision="float16",
+                               metadata_keys=["ts"])
+    dv = db._store.device_view(db.source_indices)
+    torch.cuda.synchronize()
+    if db._metadata_index or db.device != card_device():
+        raise AssertionError("L4: the compat DB indexed its constructor's metadata or left the card")
+    log(f"path L4 compat db build: {N_DOCS} x {DIM} f16 on {db.device}, "
+        f"{time.perf_counter() - t:.1f} s (metadata index empty)")
+    zero_launches(G)
+    ids, vals = db.query_batch_arrays(q512, top_k=TOP_K, metric="cosine_similarity")
+    launches = dict(G.LAUNCHES)
+    by_variant = check_variant(G, "path L4")
+    if launches != {**{key: 0 for key in launches}, "gmax_f_sub": 1}:
+        raise AssertionError(f"L4: launches {launches}, want one gmax_f_sub")
+    kernels["gmax_f_sub"]["launches"] += launches["gmax_f_sub"]
+    swaps, err = check_ids("L4 b=512", ids, vals, dv["rows_norm"], N_DOCS, q512, TOP_K)
+    diff = check_same_answers("L4 against hyperdb_tpu_torch", ids, vals, want_ids, want_vals, ATOL)
+    log(f"path L4 launches: {json.dumps(launches)} by variant: {json.dumps(by_variant)}; ids "
+        f"tie-aware equal to the reference ({swaps} tied swaps, score err {err:.3g}) and to "
+        f"hyperdb_tpu_torch.HyperDB's ({diff} ids differ)")
+    ms = run_batch(db, q512, "path L4 hyperdb_torch.HyperDB cosine", card)
+    log(f"path L4 ms/batch {ms:.3f} beside hyperdb_tpu_torch.HyperDB's {main_ms:.3f} (section 3)")
+    del db, dv
+    free_device("path L4")
+
+
+def path_drop_in(corpus, docs, main, kernels, seed: int, card: str) -> None:
+    """Path L: the drop-in package ``hyperdb_torch`` (L1-L4)."""
+    t = time.perf_counter()
+    phase_drop_in_flows(card)
+    phase_drop_in_metrics(corpus, seed, card)
+    phase_drop_in_batch(corpus, docs, main, kernels, card)
+    log(f"path L: {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4214,6 +4498,7 @@ def main() -> int:
     swaps, err = check_ids("b=16384", i16k[:512], v16k[:512], plane, N_DOCS, q16k[:512], TOP_K)
     log(f"main b=16384: first 512 ids tie-aware equal ({swaps} tied swaps, score err {err:.3g})")
     wall = run_batch(db, q512, "main path", card)
+    main512 = (q512, i512, v512, wall)
     stage_breakdown(db, q512, wall, card)
     wall = run_batch(db, q16k, "main path", card)
     stage_breakdown(db, q16k, wall, card)
@@ -4294,10 +4579,14 @@ def main() -> int:
 
     # 10. path D: the chunked doc-level branch
     path_chunked(corpus, args.seed, card)
-    del corpus, docs
 
     # 11. path E: text and persistence
     path_text(kernels, args.seed, card)
+
+    # 18. path L: the drop-in package over path A's corpus and the demo data
+    # (after path E, which loads the encoder and builds the host library)
+    path_drop_in(corpus, docs, main512, kernels, args.seed, card)
+    del corpus, docs, main512
 
     # 15. path I: training, then the fine-tuned encoder serving
     path_training(kernels, args.seed, card)

@@ -82,6 +82,13 @@ class HyperDB:
     (default: :meth:`get_embedding`, the default encoder on ``device``).
     """
 
+    # The reference's precomputed-vectors constructor branch never populates
+    # the metadata index (hyperdb.py:127-135), so its metadata filters on
+    # such corpora match nothing. The port fixes that (True), as the JAX
+    # package does; the drop-in ``hyperdb_torch`` package overrides to False
+    # for bug-for-bug reference behavior.
+    _index_constructor_metadata = True
+
     def __init__(
         self,
         documents=None,
@@ -185,9 +192,11 @@ class HyperDB:
                 self.documents = [self.filter_document(d) for d in self.documents]
             self.source_indices = list(range(len(self.documents)))
             # the precomputed-vectors branch indexes metadata too (the JAX
-            # package's fix over the reference)
-            for i, doc in enumerate(self.documents):
-                self._store_metadata(doc, i)
+            # package's fix over the reference), unless a subclass asks for
+            # the reference's behavior
+            if self._index_constructor_metadata:
+                for i, doc in enumerate(self.documents):
+                    self._store_metadata(doc, i)
             self._build_ann_index()
         elif documents:
             self.add(documents, vectors=None, add_timestamp=self.add_timestamp)

@@ -1122,3 +1122,62 @@ def test_finetune_on_card_serves_text_through_gmax_f_sub(dev, monkeypatch):
     assert G.LAUNCHES["gmax_f_sub"] == before + 1
     hids, hvals = db.query_batch_arrays(E.generate_query_vectors_batch(db, queries), top_k=10)
     assert np.array_equal(ids, hids) and np.array_equal(vals, hvals)
+
+
+# the drop-in package: path L3's tolerances of chip_smoke.py (each side lies
+# within them of a float64 reference; jaccard and hamming are exact counts)
+COMPAT_ATOL = {
+    "dot_product": 2e-4,
+    "cosine_similarity": 1e-6,
+    "euclidean_metric": 1e-8,
+    "manhattan_distance": 1e-8,
+    "jaccard_similarity": 1e-7,
+    "pearson_correlation": 1e-6,
+    "hamming_distance": 0.0,
+}
+
+
+def test_drop_in_package_on_card_matches_cpu(dev, monkeypatch):
+    """``hyperdb_torch`` on the card over 2^17 x 384 rows: the seven
+    reference-shaped functions and the sort equal the CPU within
+    ``COMPAT_ATOL``; the compat class answers a b = 512 block (the grouped
+    route lowered to 2^17 rows) with one ``gmax_f_sub`` launch on ``wgmma``
+    and the engine's ids and scores, its constructor's metadata index
+    empty."""
+    import hyperdb_torch
+    import hyperdb_torch.ranking_algorithm as TR
+    from hyperdb_tpu_torch import HyperDB as Engine
+    from hyperdb_tpu_torch.config import CONFIG
+
+    n, d = 1 << 17, 384
+    rng = np.random.default_rng(17)
+    v = rng.standard_normal((n, d), dtype=np.float32).astype(np.float16)
+    v[17] = v[4]
+    v32 = v.astype(np.float32)
+    q = rng.standard_normal(d, dtype=np.float32)
+    for name, atol in COMPAT_ATOL.items():
+        got = getattr(TR, name)(v32, q)  # the card by default
+        want = getattr(TR, name)(v32, q, device="cpu")
+        assert got.dtype == want.dtype == np.float32 and got.shape == (n,)
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=name)
+    for qq in (q, v32[4]):
+        gi, gv = TR.hyperDB_ranking_algorithm_sort(v32, qq, top_k=10, device="cuda")
+        wi, wv = TR.hyperDB_ranking_algorithm_sort(v32, qq, top_k=10, device="cpu")
+        np.testing.assert_allclose(gv, wv, rtol=0, atol=COMPAT_ATOL["cosine_similarity"])
+        cos = TR.cosine_similarity(v32, qq, device="cpu")
+        np.testing.assert_allclose(cos[gi], cos[wi], rtol=0, atol=COMPAT_ATOL["cosine_similarity"])
+    assert list(gi[:2]) == [4, 17]
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", n)
+    docs = [{"i": i} for i in range(n)]
+    compat = hyperdb_torch.HyperDB(documents=docs, vectors=v, fp_precision="float16",
+                                   metadata_keys=["i"])
+    assert compat.device.type == "cuda" and compat._metadata_index == {}
+    block = rng.standard_normal((512, d), dtype=np.float32)
+    before = dict(G.LAUNCHES), dict(G.LAUNCHES_BY_VARIANT)
+    ids, vals = compat.query_batch_arrays(block, top_k=10)
+    assert G.LAUNCHES["gmax_f_sub"] == before[0]["gmax_f_sub"] + 1
+    assert G.LAUNCHES_BY_VARIANT["wgmma"] == before[1]["wgmma"] + 1
+    engine = Engine(documents=docs, vectors=v, fp_precision="float16", metadata_keys=["i"])
+    want_ids, want_vals = engine.query_batch_arrays(block, top_k=10)
+    assert np.array_equal(ids, want_ids) and np.array_equal(vals, want_vals)

@@ -1,7 +1,9 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
-- No file of ``hyperdb_tpu_torch/`` and not ``chip_smoke.py`` imports
-  ``jax``, ``flax``, ``hyperdb_tpu`` or ``hyperdb`` (AST scan).
+- No file of ``hyperdb_tpu_torch/`` or of the drop-in ``hyperdb_torch/``
+  and not ``chip_smoke.py`` imports ``jax``, ``flax``, ``hyperdb_tpu`` or
+  ``hyperdb`` (AST scan; the root must match exactly, so ``hyperdb_torch``
+  and ``hyperdb_tpu_torch`` pass).
 - ``HyperDB(...)`` without ``device=`` raises where CUDA is missing.
 - The kernel wrappers take their plain versions for CPU tensors only: any
   other tensor goes to the kernel, and a kernel library that cannot be
@@ -32,6 +34,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hyperdb_tpu", "hyperdb")
 
 def _port_files():
     files = sorted((ROOT / "hyperdb_tpu_torch").rglob("*.py"))
+    files += sorted((ROOT / "hyperdb_torch").glob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     return files
 
@@ -62,6 +65,29 @@ def test_local_assets_found_without_the_jax_package(tmp_path):
         "assert emb.encode(['a short text']).shape == (1, 384)\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "assert not loaded, loaded\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env, check=True, timeout=120)
+
+
+def test_drop_in_package_runs_with_jax_blocked(tmp_path):
+    """``hyperdb_torch`` imports and scores in a process where every module
+    of ``FORBIDDEN`` fails to import."""
+    script = (
+        "import sys\n"
+        "for name in %r:\n"
+        "    sys.modules[name] = None  # any import of it raises ImportError\n"
+        "import numpy as np\n"
+        "import hyperdb_torch\n"
+        "from hyperdb_torch.ranking_algorithm import cosine_similarity\n"
+        "v = np.array([[1.0, 0.0], [0.6, 0.8], [0.0, 0.0]])\n"
+        "s = cosine_similarity(v, np.array([1.0, 0.0]), device='cpu')\n"
+        "assert np.allclose(s, [1.0, 0.6, 0.0], atol=1e-6), s\n"
+        "db = hyperdb_torch.HyperDB(['a'], np.ones((1, 4), np.float32), device='cpu')\n"
+        "assert db.query(np.ones(4), top_k=1)[0][2] == 0\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in %r\n"
+        "                and sys.modules[m] is not None)\n"
+        "assert not loaded, loaded\n" % (FORBIDDEN, FORBIDDEN)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env, check=True, timeout=120)
