@@ -258,6 +258,19 @@ Phases, one or a few lines each on standard output:
    ms/batch and q/s beside section 3's. Files go under ``build/smoke_dropin/``
    and are removed.
 
+19. path M, the surface repaired to the JAX package's (after path H2, on
+   its DB). M1: ``db.vectors = ...`` with a seeded float16 corpus of the
+   DB's shape (row 4 copied to row 17): the setter's seconds, then fresh
+   b = 512 cosine queries (query 0 is row 4) through ``query_batch_arrays``:
+   one ``gmax_f_sub`` launch on ``wgmma`` (counters set to 0 just before),
+   ids tie-aware equal to the exact reference over the new plane, rows 4
+   and 17 first, ms/batch beside section 3's. M2: a 4096 x 384 float16 DB
+   saved with a bogus ``.ann`` sidecar must fail to load with the JAX
+   package's ``RuntimeError`` text. M3: the intact sidecar loaded with
+   ``preload_ann_into_memory=True``: device memory allocated before and
+   after the load and after the first b = 512 batch, which must add less
+   than one plane. Files go under ``build/smoke_parity/`` and are removed.
+
 Then a JSON line describing every kernel (path K's as "<name> d=4480"), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no last line. It needs one CUDA device and refuses to run
@@ -4443,6 +4456,134 @@ def path_drop_in(corpus, docs, main, kernels, seed: int, card: str) -> None:
     log(f"path L: {time.perf_counter() - t:.1f} s")
 
 
+M_DB_ROWS = 4096  # path M2-M3: rows of the saved DB
+M_LOAD_ERROR = "An exception occurred during ANN index load: 'metric'"  # the JAX package's text
+
+
+def phase_vectors_setter(db, main, kernels, seed: int, card: str) -> None:
+    """M1: ``db.vectors = ...`` on the main path's DB (as path H2 left it):
+    a seeded float16 corpus of the same shape (row 4 copied to row 17), then
+    fresh b = 512 cosine queries (query 0 is row 4) through
+    ``query_batch_arrays``: one ``gmax_f_sub`` launch on ``wgmma``, ids
+    tie-aware equal to the exact reference over the new plane, the planted
+    pair first. The index object stays (the JAX setter leaves it)."""
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    n, d = db.vectors.shape
+    if not np.array_equal(np.asarray(db.source_indices), np.arange(n)):
+        raise AssertionError("M1: the DB's rows are not one per document")
+    new = np.random.default_rng(seed + 400).standard_normal((n, d), dtype=np.float32)
+    new = new.astype(np.float16)
+    new[17] = new[4]
+    q = np.random.default_rng(seed + 401).standard_normal((512, d), dtype=np.float32)
+    q[0] = new[4].astype(np.float32)
+    index = db.ann_index
+    t = time.perf_counter()
+    db.vectors = new
+    set_s = time.perf_counter() - t
+    if db.vectors is not new or db.ann_index is not index:
+        raise AssertionError("M1: the setter did not take the rows as given, or replaced the index")
+    zero_launches(G)
+    t = time.perf_counter()
+    ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric="cosine_similarity")
+    first_s = time.perf_counter() - t
+    launches = dict(G.LAUNCHES)
+    by_variant = check_variant(G, "path M1")
+    if launches != {**{key: 0 for key in launches}, "gmax_f_sub": 1}:
+        raise AssertionError(f"M1: launches {launches}, want one gmax_f_sub")
+    kernels["gmax_f_sub"]["launches"] += launches["gmax_f_sub"]
+    plane = db._store.device_view(db.source_indices)["rows_norm"]
+    swaps, err = check_ids("M1 b=512", ids, vals, plane, n, q, TOP_K)
+    if list(ids[0, :2]) != [4, 17]:
+        raise AssertionError(f"M1: the planted rows 4/17 not first in lower-id order: {ids[0, :2]}")
+    log(f"path M1 db.vectors = {n} x {d} f16: setter {set_s:.6f} s, first b=512 batch "
+        f"{first_s:.2f} s (the plane rebuilt); launches: {json.dumps(launches)} by variant: "
+        f"{json.dumps(by_variant)}; ids tie-aware equal to the reference over the new plane "
+        f"({swaps} tied swaps, score err {err:.3g}), rows 4/17 first")
+    ms = run_batch(db, q, "path M1 cosine after db.vectors = ...", card)
+    log(f"path M1 ms/batch {ms:.3f} beside the main path's {main[3]:.3f} (section 3) [{card}]")
+    del plane
+
+
+def phase_load_contract(seed: int, card: str) -> None:
+    """M2-M3 on a 4096 x 384 float16 DB on the card, saved as a pickle with
+    its ``.ann`` sidecar. M2: the sidecar overwritten with an npz that is
+    not an index; ``load`` must raise ``RuntimeError`` with the JAX
+    package's text. M3: the intact sidecar loaded with
+    ``preload_ann_into_memory=True``; device memory allocated before and
+    after the load and after the first b = 512 batch: the load must build
+    the planes and the batch must add less than one plane; ids tie-aware
+    equal to the exact reference."""
+    import shutil
+    from pathlib import Path
+
+    from hyperdb_tpu_torch import HyperDB
+
+    work = Path(ROOT) / "build" / "smoke_parity"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        v = np.random.default_rng(seed + 410).standard_normal((M_DB_ROWS, DIM), dtype=np.float32)
+        v = v.astype(np.float16)
+        path = work / "m.pickle"
+        HyperDB(documents=[{"i": i} for i in range(M_DB_ROWS)], vectors=v,
+                fp_precision="float16").save(str(path))
+        ann = Path(f"{path}.ann")
+        shutil.copy(ann, work / "intact.ann")
+        with open(ann, "wb") as f:
+            np.savez(f, kind="bogus")
+        try:
+            HyperDB(fp_precision="float16").load(str(path))
+        except RuntimeError as e:
+            got = (type(e), str(e))
+        else:
+            raise AssertionError("M2: a bogus .ann sidecar loaded without a raise")
+        if got != (RuntimeError, M_LOAD_ERROR):
+            raise AssertionError(f"M2: {got[0].__name__}: {got[1]!r}, want RuntimeError: {M_LOAD_ERROR!r}")
+        log(f"path M2 load with a bogus .ann sidecar: {got[0].__name__}: {got[1]}")
+
+        shutil.copy(work / "intact.ann", ann)
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        db = HyperDB(fp_precision="float16")
+        t = time.perf_counter()
+        db.load(str(path), preload_ann_into_memory=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        loaded = torch.cuda.memory_allocated()
+        q = make_queries(seed + 411, 512, v)
+        ids, vals = db.query_batch_arrays(q, top_k=TOP_K, metric="cosine_similarity")
+        torch.cuda.synchronize()
+        queried = torch.cuda.memory_allocated()
+        dv = db._store.device_view(db.source_indices)
+        plane = dv["rows_norm"]
+        plane_bytes = plane.numel() * plane.element_size()
+        if db.device != card_device() or loaded - before < plane_bytes:
+            raise AssertionError(f"M3: the preload built {loaded - before} bytes on {db.device}, "
+                                 f"under one {plane_bytes}-byte plane")
+        if queried - loaded >= plane_bytes:
+            raise AssertionError(f"M3: the first batch allocated {queried - loaded} bytes, "
+                                 f"a plane ({plane_bytes}) or more: the preload left a plane out")
+        swaps, err = check_ids("M3 b=512", ids, vals, plane, M_DB_ROWS, q, TOP_K)
+        log(f"path M3 load(preload_ann_into_memory=True) of {M_DB_ROWS} x {DIM} f16 in "
+            f"{load_s:.3f} s: memory_allocated {before} B before, {loaded} B after the load, "
+            f"{queried} B after the first b=512 batch (a plane is {plane_bytes} B); ids tie-aware "
+            f"equal to the reference ({swaps} tied swaps, score err {err:.3g}) [{card}]")
+        del db, dv, plane
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    free_device("path M3")
+
+
+def path_parity(db, main, kernels, seed: int, card: str) -> None:
+    """Path M: the surface repaired to the JAX package's (M1-M3)."""
+    t = time.perf_counter()
+    phase_vectors_setter(db, main, kernels, seed, card)
+    phase_load_contract(seed, card)
+    log(f"path M: {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4571,6 +4712,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     path_sharded_lifecycle(db, corpus, args.seed, card)
     log(f"path H2-H3: {time.perf_counter() - t:.1f} s")
+
+    # 19. path M: the repaired surface (the vectors setter on H2's DB, the
+    # index-load and preload contract)
+    path_parity(db, main512, kernels, args.seed, card)
     del db, dv, plane
     torch.cuda.empty_cache()
 

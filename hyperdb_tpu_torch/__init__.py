@@ -7,6 +7,8 @@ kernels; ``device="cpu"`` runs their plain PyTorch versions.
 
 import torch
 
+__version__ = "0.1.0"
+
 # f32 corpora must score in true f32, as the JAX package's dot-precision
 # rule (Precision.HIGHEST for any f32 operand) does: TF32 keeps ~3 decimal
 # digits and would reorder near-tied results against the reference.

@@ -24,7 +24,6 @@ import collections
 import datetime
 import os
 import string
-import zipfile
 from typing import Iterable
 
 import numpy as np
@@ -232,6 +231,10 @@ class HyperDB:
     @property
     def vectors(self):
         return self._store.vectors
+
+    @vectors.setter
+    def vectors(self, value):
+        self._store.set(value)
 
     @property
     def dim(self) -> int | None:
@@ -1233,33 +1236,39 @@ class HyperDB:
     def _load_ann_index(self, storage_file, preload_ann_into_memory: bool = True):
         """Restore the ``.ann`` sidecar (flat, IVF or projscan, in the JAX
         package's layout), or rebuild the index when there is none. A
-        sidecar that is not an npz (the reference's Annoy forest) warns and
-        rebuilds."""
+        sidecar that does not parse (the reference's Annoy forest) warns and
+        rebuilds; any other failure raises ``RuntimeError``, as in the JAX
+        package."""
         ann_index_file = str(storage_file) + ".ann"
-        if not os.path.exists(ann_index_file):
-            self._build_ann_index()
-        else:
-            if preload_ann_into_memory:
-                size_gb = os.path.getsize(ann_index_file) / (1024**3)
-                if size_gb > 2:
-                    print(
-                        f"Warning: The ANN index file is {size_gb:.2f}GB "
-                        "and may consume a lot of memory. Make sure your "
-                        "machine has enough available memory or set "
-                        "preload_ann_into_memory to False."
-                    )
-            try:
-                with np.load(ann_index_file, allow_pickle=False) as f:
-                    state = _unflatten_state(dict(f.items()))
-            except (OSError, ValueError, zipfile.BadZipFile) as e:
-                print(
-                    "Warning: could not parse ANN index sidecar "
-                    f"'{ann_index_file}' ({e}); rebuilding the index "
-                    "from the loaded vectors instead."
-                )
+        try:
+            if not os.path.exists(ann_index_file):
                 self._build_ann_index()
             else:
+                if preload_ann_into_memory:
+                    size_gb = os.path.getsize(ann_index_file) / (1024**3)
+                    if size_gb > 2:
+                        print(
+                            f"Warning: The ANN index file is {size_gb:.2f}GB "
+                            "and may consume a lot of memory. Make sure your "
+                            "machine has enough available memory or set "
+                            "preload_ann_into_memory to False."
+                        )
+                try:
+                    with np.load(ann_index_file, allow_pickle=False) as f:
+                        state = _unflatten_state(dict(f.items()))
+                except Exception as e:
+                    print(
+                        "Warning: could not parse ANN index sidecar "
+                        f"'{ann_index_file}' ({e}); rebuilding the index "
+                        "from the loaded vectors instead."
+                    )
+                    self._build_ann_index()
+                    if preload_ann_into_memory:
+                        self._preload_into_memory()
+                    return
                 self._restore_index(state)
+        except Exception as e:
+            raise RuntimeError(f"An exception occurred during ANN index load: {e}")
         if preload_ann_into_memory:
             self._preload_into_memory()
 
@@ -1277,18 +1286,23 @@ class HyperDB:
         """Build every device plane serving can touch now (on the card),
         instead of at the first query: the float planes (cosine and raw;
         split where the corpus is planar, which is all the engine reads
-        then) and, for the int8 representations, the int8 planes."""
+        then) and, for the int8 representations, the int8 planes. A failure
+        prints and leaves the planes to the first query, as in the JAX
+        package."""
         if self._store.num_rows == 0 or not self.source_indices:
             return
-        dv = self._store.device_view(self.source_indices)
-        if self._store.precision != "int8-pure":
-            keys = ("rows_norm", "rows")
-            if self._store.is_planar(dv["n_pad"]):
-                keys = ("rows_norm_planes", "rows_planes")
-            for key in keys:
-                dv[key]  # the lazy view uploads a plane on first access
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        try:
+            dv = self._store.device_view(self.source_indices)
+            if self._store.precision != "int8-pure":
+                keys = ("rows_norm", "rows")
+                if self._store.is_planar(dv["n_pad"]):
+                    keys = ("rows_norm_planes", "rows_planes")
+                for key in keys:
+                    dv[key]  # the lazy view uploads a plane on first access
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except Exception as e:
+            print(f"INFO: preload_ann_into_memory failed, staying lazy: {e}")
 
 
 def _flatten_state(state: dict) -> dict:

@@ -132,10 +132,12 @@ class VectorStore:
     planes split (:meth:`plane_bounds`), which the engine's planar branch
     ranks plane by plane."""
 
-    def __init__(self, fp_dtype, precision: str = "auto", device="cpu"):
+    def __init__(self, fp_dtype, precision: str = "auto", device=None):
+        from hyperdb_tpu_torch.core.db import resolve_device
+
         self.fp_dtype = np.dtype(fp_dtype)
         self.precision = precision
-        self.device = torch.device(device)
+        self.device = resolve_device(device)  # the card unless the caller asks for the CPU
         self.vectors: np.ndarray | None = None  # (N, d) host master
         self._device: dict | None = None
         self._host: dict | None = None

@@ -89,6 +89,17 @@ def _bind(lib) -> None:
     lib.hdb_srv_destroy.argtypes = [ctypes.c_void_p]
 
 
+def available() -> bool:
+    """True when the native serving front end can be used on this host: the
+    host library builds and loads. A failed build (no compiler, a compiler
+    error) is False here, not a raise."""
+    try:
+        _bind(_host_lib.load())
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 class NativeQueryServer:
     """Serve ``db`` over HTTP through the C++ epoll front-end.
 

@@ -64,13 +64,13 @@ LOW_PRECISION = (torch.float16, torch.bfloat16)
 _MANHATTAN_TILE = 2048
 
 
-def normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """L2-normalize along ``dim`` in float32; zero norms are treated as 1.
+def normalize(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """L2-normalize along ``axis`` in float32; zero norms are treated as 1.
 
     The result is float32 whatever the input dtype, as in the JAX package
     (a low-precision array divided by its f32 norm promotes to f32)."""
     x32 = x.float()
-    n = torch.sqrt(torch.sum(x32 * x32, dim=dim, keepdim=True))
+    n = torch.sqrt(torch.sum(x32 * x32, dim=axis, keepdim=True))
     n = torch.where(n == 0, torch.ones_like(n), n)
     return x32 / n
 

@@ -32,6 +32,7 @@ from hyperdb_tpu_torch.ops import ranking as R
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5
+SETTER_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -144,6 +145,41 @@ def test_db_on_card_matches_cpu(dev, monkeypatch, sub):
     assert np.abs(gv - pv).max() <= ATOL
     diff = gi != pi
     assert (np.abs(gv - pv)[diff] <= ATOL).all()
+
+
+def test_vectors_setter_then_query_on_card_matches_cpu(dev, monkeypatch):
+    """``db.vectors = ...`` on a card DB that has served a batch: the next
+    batch scans the new rows through ``gmax_f_sub`` and returns exactly
+    what a card DB built over those rows returns, and the CPU DB's ids
+    (scores within ``SETTER_ATOL``: the card's and the CPU's f32 query
+    norms differ in the last ulp, which can move a query element across a
+    bf16 rounding step: a few 1e-5 of score on these rows)."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    rng = np.random.default_rng(16)
+    v = (rng.standard_normal((16384, 384)) / np.sqrt(384)).astype(np.float16)
+    v2 = (rng.standard_normal((16384, 384)) / np.sqrt(384)).astype(np.float16)
+    docs = list(range(16384))
+    q = rng.standard_normal((600, 384)).astype(np.float32)
+    card = HyperDB(docs, v, fp_precision="float16", device=dev)
+    cpu = HyperDB(docs, v, fp_precision="float16", device="cpu")
+    card.query_batch_arrays(q, top_k=10)  # the old corpus's planes exist
+    card.vectors = v2
+    cpu.vectors = v2
+    before = dict(G.LAUNCHES)
+    gi, gv = card.query_batch_arrays(q, top_k=10)
+    assert G.LAUNCHES["gmax_f_sub"] == before["gmax_f_sub"] + 1
+    fi, fv = HyperDB(docs, v2, fp_precision="float16", device=dev).query_batch_arrays(q, top_k=10)
+    assert np.array_equal(gi, fi) and np.array_equal(gv, fv)
+    pi, pv = cpu.query_batch_arrays(q, top_k=10)
+    assert np.abs(gv - pv).max() <= SETTER_ATOL
+    diff = gi != pi
+    assert (np.abs(gv - pv)[diff] <= SETTER_ATOL).all()
+    q2 = v2[:8].astype(np.float32)
+    gi, _ = card.query_batch_arrays(q2, top_k=1)
+    assert list(gi[:, 0]) == list(range(8))
 
 
 def _near_tie_aware(gi, gv, pi, pv, tol):

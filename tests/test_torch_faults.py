@@ -1,4 +1,4 @@
-"""Four faults of the port against the JAX package, each pinned against both.
+"""Faults of the port against the JAX package, each pinned against both.
 
 1. ``HyperDB.commit_pending`` rolls back as the reference does: a failure
    prints "Error occurred during commit: ... Rolling back transaction." and
@@ -12,17 +12,28 @@
    ``scores``).
 4. The plain euclidean route keeps a self-match at 1.0: the expanded form
    runs in float64 (it lost 2.8e-3 to f32 cancellation).
+5. ``HyperDB.vectors`` has the JAX setter (over ``VectorStore.set``; the
+   LRU cache and the index stay as they are), in both classes.
+6. ``load`` wraps a failed index restore in JAX's ``RuntimeError`` text.
+7. A failed preload prints JAX's ``INFO:`` line and stays lazy.
+8. ``ops.metrics.normalize`` takes ``axis``; ``native.server.available()``
+   is a bool and never raises; ``__version__`` is the JAX package's.
 
 Tolerances: ranking scores over f32 inputs, 1e-6 absolute (the same f32
 products summed in another order); the euclidean self-match within 1e-4 of
-the JAX package's, as ``tests/test_host_path.py`` holds JAX's two paths.
+the JAX package's, as ``tests/test_host_path.py`` holds JAX's two paths;
+``normalize`` within 1e-6 (the CPU norms differ in the last f32 ulp).
 """
 
 import copy
+import tomllib
+from pathlib import Path
 
 import numpy as np
 import pytest
 
+import hyperdb
+import hyperdb_torch
 import hyperdb_tpu
 import hyperdb_tpu_torch
 from hyperdb_tpu import HyperDB as JaxDB
@@ -322,3 +333,160 @@ def test_euclidean_self_match(monkeypatch, fp):
         q = torch.from_numpy(v[17]).double()
         exact = 1.0 / (1.0 + torch.sqrt(((plane[ids] - q) ** 2).sum(-1)))
         np.testing.assert_allclose(scores, exact.numpy(), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------- 5. vectors setter
+
+
+def _fifty_rows(seed=0):
+    """The faults' input: 50 x 8 standard normal float32 rows, one dict
+    document each."""
+    v = np.random.default_rng(seed).standard_normal((50, 8)).astype(np.float32)
+    return [{"i": i} for i in range(50)], v
+
+
+SETTER_CLASSES = {
+    "hyperdb_tpu_torch": (JaxDB, TorchDB),
+    "hyperdb_torch": (hyperdb.HyperDB, hyperdb_torch.HyperDB),
+}
+
+
+def _pair(name, docs, v):
+    jax_cls, torch_cls = SETTER_CLASSES[name]
+    return jax_cls(documents=docs, vectors=v), torch_cls(documents=docs, vectors=v, device="cpu")
+
+
+@pytest.mark.parametrize("cls", sorted(SETTER_CLASSES))
+def test_vectors_setter_takes_the_rows(cls):
+    docs, v = _fifty_rows()
+    j, t = _pair(cls, docs, v)
+    new = v[:10] * 2
+    j.vectors = new
+    t.vectors = new
+    assert t.vectors.shape == j.vectors.shape == (10, 8)
+    assert t.vectors.dtype == j.vectors.dtype == np.float32
+    np.testing.assert_array_equal(t.vectors, j.vectors)
+    t.vectors = None
+    j.vectors = None
+    assert t.vectors is None and j.vectors is None
+
+
+@pytest.mark.parametrize("cls", sorted(SETTER_CLASSES))
+def test_query_after_vectors_setter_matches_jax(cls):
+    """A corpus of the same shape assigned through the setter: a fresh
+    batch ranks the new rows as JAX does, and a repeated single query
+    returns what the LRU cache held before the assignment (the JAX setter
+    clears neither the cache nor the index)."""
+    docs, v = _fifty_rows()
+    _, v2 = _fifty_rows(seed=1)
+    j, t = _pair(cls, docs, v)
+    before = {"jax": j.query(v[3], top_k=3), "torch": t.query(v[3], top_k=3)}
+    index = t.ann_index
+    j.vectors = v2
+    t.vectors = v2
+    assert t.ann_index is index
+    ji, jv = j.query_batch_arrays(v2[:4], top_k=3)
+    ti, tv = t.query_batch_arrays(v2[:4], top_k=3)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-6)
+    assert list(ti[:, 0]) == [0, 1, 2, 3]
+    assert t.query(v[3], top_k=3) == before["torch"]
+    assert j.query(v[3], top_k=3) == before["jax"]
+    assert [r[2] for r in before["torch"]] == [r[2] for r in before["jax"]]
+
+
+# ---------------------------------------------------------------- 6-7. load
+
+
+def _saved(pkg, tmp_path):
+    docs, v = _fifty_rows()
+    path = tmp_path / f"{pkg}.pickle"
+    _db(pkg, documents=docs, vectors=v).save(str(path))
+    return path, v
+
+
+def test_bogus_index_sidecar_raises_jax_runtime_error(tmp_path):
+    """An npz sidecar that is not an index: JAX raises ``RuntimeError:
+    An exception occurred during ANN index load: 'metric'`` (the port gave
+    a bare ``KeyError``)."""
+    raised = {}
+    for pkg in PACKAGES:
+        path, _ = _saved(pkg, tmp_path)
+        with open(f"{path}.ann", "wb") as f:
+            np.savez(f, kind="bogus")
+        with pytest.raises(Exception) as err:
+            _db(pkg).load(str(path))
+        raised[pkg] = (type(err.value), str(err.value))
+    assert raised["torch"] == raised["jax"] == (
+        RuntimeError, "An exception occurred during ANN index load: 'metric'"
+    )
+
+
+def test_failed_preload_stays_lazy(tmp_path, monkeypatch, capsys):
+    """``load(..., preload_ann_into_memory=True)`` with the store's
+    ``device_view`` failing as a card out of memory would: both packages
+    print the ``INFO:`` line and return; the next batch builds the view
+    and answers JAX's ids."""
+
+    def out_of_memory(*args, **kw):
+        raise RuntimeError("simulated out of device memory")
+
+    seen = {}
+    for pkg in PACKAGES:
+        path, v = _saved(pkg, tmp_path)
+        db = _db(pkg)
+        with monkeypatch.context() as m:
+            m.setattr(db._store, "device_view", out_of_memory)
+            db.load(str(path), preload_ann_into_memory=True)
+        printed = capsys.readouterr().out
+        ids, _ = db.query_batch_arrays(v[:2], top_k=3)
+        seen[pkg] = (printed, ids.tolist())
+    assert seen["torch"] == seen["jax"] == (
+        "INFO: preload_ann_into_memory failed, staying lazy: simulated out of device memory\n",
+        [[0, 44, 4], [1, 35, 13]],
+    )
+
+
+# ---------------------------------------------------------------- 8. names
+
+
+def test_normalize_takes_axis():
+    import torch
+
+    from hyperdb_tpu.ops import metrics as JM
+    from hyperdb_tpu_torch.ops import metrics as TM
+
+    x = np.random.default_rng(3).standard_normal((6, 5)).astype(np.float32)
+    x[:, 2] = 0.0  # a zero column: its norm is treated as 1
+    for axis in (0, 1, -1):
+        got = TM.normalize(torch.from_numpy(x), axis=axis).numpy()
+        want = np.asarray(JM.normalize(x, axis=axis))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6, err_msg=str(axis))
+    assert (TM.normalize(torch.from_numpy(x), axis=0)[:, 2] == 0).all()
+
+
+def test_native_server_available_is_a_bool():
+    from hyperdb_tpu_torch.native import server as S
+
+    assert S.available() in (True, False)
+
+
+def test_native_server_available_without_a_library(monkeypatch):
+    """A build that fails (no compiler, a compiler error): ``available()``
+    is False, never a raise."""
+    from hyperdb_tpu_torch.native import server as S
+    from hyperdb_tpu_torch.native import tokenizer as NT
+
+    def no_compiler():
+        raise RuntimeError("no C++ compiler ('g++' not on PATH)")
+
+    monkeypatch.setattr(NT, "_LIB", None)
+    monkeypatch.setattr(NT, "build", no_compiler)
+    assert S.available() is False
+
+
+def test_version_matches_jax_and_pyproject():
+    root = Path(__file__).resolve().parents[1]
+    with open(root / "pyproject.toml", "rb") as f:
+        version = tomllib.load(f)["project"]["version"]
+    assert hyperdb_tpu_torch.__version__ == hyperdb_tpu.__version__ == version == "0.1.0"

@@ -108,6 +108,17 @@ def test_default_device_is_the_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_vector_store_default_device_is_the_card(monkeypatch):
+    """``VectorStore`` places its planes on the card unless asked for the
+    CPU, as the JAX store places them on the default (accelerator) device."""
+    from hyperdb_tpu_torch.core.store import VectorStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VectorStore(np.float16)
+    assert VectorStore(np.float16, device="cpu").device == torch.device("cpu")
+
+
 @pytest.fixture
 def no_kernel_library(monkeypatch, tmp_path):
     """Point the loader at a build directory with no library and a toolkit
