@@ -32,6 +32,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from hyperdb_tpu_torch.utils import trace as _trace
+
 
 def bucket_size(n: int, minimum: int = 8) -> int:
     """Smallest padded size >= n from a ~12.5%-granularity bucket ladder."""
@@ -277,10 +279,14 @@ class VectorStore:
         if self.precision == "int8-pure":
             raise KeyError(key)  # int8-pure never holds float planes
         n = vectors.shape[0]
-        return tuple(
-            self._build_plane(vectors, a, min(b, n), b - a, key == "rows_norm")
-            for a, b in zip(bounds, bounds[1:])
-        )
+        with _trace.setup_span("store.planes") as built:
+            planes = tuple(
+                self._build_plane(vectors, a, min(b, n), b - a, key == "rows_norm")
+                for a, b in zip(bounds, bounds[1:])
+            )
+            built.attrs["rows"] = bounds[-1]
+            built.attrs["planes"] = len(planes)
+        return planes
 
     def device_view(self, source_indices) -> dict:
         """Padded device arrays for the current corpus; cached until the next

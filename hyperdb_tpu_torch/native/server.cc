@@ -80,6 +80,7 @@ struct HotReq {
   std::string filters;  // raw JSON filter spec (part of the group key)
   std::string recency;  // recency_bias as its raw decimal string
   std::string tskey;    // timestamp_key
+  Clock::time_point arrived;  // when the I/O thread queued it
 };
 
 struct GenReq {
@@ -183,6 +184,8 @@ struct Server {
   std::string cur_tskey;
   std::vector<float> cur_vecs;
   std::vector<int32_t> cur_topks;
+  double cur_wait_sum_s = 0.0;  // queue wait of cur_batch: summed, largest
+  double cur_wait_max_s = 0.0;
   GenReq cur_req;
 
   // completed responses, drained by the epoll thread
@@ -472,7 +475,8 @@ int try_parse_request(Server* s, int fd) {
     {
       std::lock_guard<std::mutex> lk(s->mu);
       auto& group = s->hot[group_key(metric, req)];
-      if (group.reqs.empty()) group.first = Clock::now();
+      req.arrived = Clock::now();
+      if (group.reqs.empty()) group.first = req.arrived;
       group.reqs.push_back(std::move(req));
     }
     s->cv.notify_one();
@@ -516,7 +520,8 @@ int try_parse_request(Server* s, int fd) {
     {
       std::lock_guard<std::mutex> lk(s->mu);
       auto& group = s->hot[group_key(metric, req)];
-      if (group.reqs.empty()) group.first = Clock::now();
+      req.arrived = Clock::now();
+      if (group.reqs.empty()) group.first = req.arrived;
       group.reqs.push_back(std::move(req));
     }
     s->cv.notify_one();
@@ -774,8 +779,14 @@ int hdb_srv_next(void* sp) {
         if (group.empty()) s->hot.erase(it);
         else it->second.first = now;  // leftovers start a fresh window
         s->cur_topks.resize(s->cur_batch.size());
-        for (size_t i = 0; i < s->cur_batch.size(); ++i)
+        s->cur_wait_sum_s = s->cur_wait_max_s = 0.0;
+        for (size_t i = 0; i < s->cur_batch.size(); ++i) {
           s->cur_topks[i] = s->cur_batch[i].top_k;
+          double wait = std::chrono::duration<double>(
+                            now - s->cur_batch[i].arrived).count();
+          s->cur_wait_sum_s += wait;
+          if (wait > s->cur_wait_max_s) s->cur_wait_max_s = wait;
+        }
         if (is_text) return 3;
         s->cur_vecs.resize(s->cur_batch.size() * (size_t)s->dim);
         for (size_t i = 0; i < s->cur_batch.size(); ++i) {
@@ -820,6 +831,15 @@ const char* hdb_srv_batch_text(void* sp, int i, long long* len) {
   const std::string& t = s->cur_batch[(size_t)i].text;
   if (len) *len = (long long)t.size();  // NUL bytes in the body survive
   return t.data();
+}
+
+// Queue wait of the batch hdb_srv_next last handed over (tags 1 and 3):
+// out[0] the sum over its requests of the time from enqueue to hand-over,
+// out[1] the largest, in seconds.
+void hdb_srv_batch_wait(void* sp, double* out) {
+  Server* s = (Server*)sp;
+  out[0] = s->cur_wait_sum_s;
+  out[1] = s->cur_wait_max_s;
 }
 
 // ids/scores are (B, k) row-major; each request gets its own top_k prefix.

@@ -30,10 +30,12 @@ import numpy as np
 import torch
 
 from hyperdb_tpu_torch.native import tokenizer as _host_lib
+from hyperdb_tpu_torch.utils import trace as _trace
 
 _P_FLOAT = ctypes.POINTER(ctypes.c_float)
 _P_INT32 = ctypes.POINTER(ctypes.c_int32)
 _P_LL = ctypes.POINTER(ctypes.c_longlong)
+_P_DOUBLE = ctypes.POINTER(ctypes.c_double)
 
 
 def _bind(lib) -> None:
@@ -63,6 +65,8 @@ def _bind(lib) -> None:
     lib.hdb_srv_batch_text.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
     ]
+    lib.hdb_srv_batch_wait.restype = None
+    lib.hdb_srv_batch_wait.argtypes = [ctypes.c_void_p, _P_DOUBLE]
     lib.hdb_srv_batch_complete.restype = None
     lib.hdb_srv_batch_complete.argtypes = [
         ctypes.c_void_p, _P_LL, _P_FLOAT, ctypes.c_int,
@@ -153,6 +157,11 @@ class NativeQueryServer:
         self.complete_s = 0.0
         self.idle_s = 0.0  # blocked in hdb_srv_next (no work pending)
         self.max_flush = 0
+        # the batcher's queue wait (enqueue by the I/O thread to hand-over
+        # to this worker), summed over every request of every flush
+        self.queue_s = 0.0
+        self.queued = 0
+        self._wait = (ctypes.c_double * 2)()  # hdb_srv_batch_wait's out
         self._worker = threading.Thread(
             target=self._run, daemon=True, name="hyperdb-native-serve"
         )
@@ -190,9 +199,10 @@ class NativeQueryServer:
         if device is not None and device.type == "cuda":
             torch.cuda.set_device(device)  # the db's card, in this thread too
         while True:
-            t0 = time.perf_counter()
-            tag = lib.hdb_srv_next(srv)  # blocks; GIL released in ctypes
-            self.idle_s += time.perf_counter() - t0
+            with _trace.span("native.wait"):
+                t0 = time.perf_counter()
+                tag = lib.hdb_srv_next(srv)  # blocks; GIL released in ctypes
+                self.idle_s += time.perf_counter() - t0
             if tag == 0:
                 return
             if tag == 1:
@@ -207,29 +217,37 @@ class NativeQueryServer:
         fail the flush on error (400 for validation errors, 500 for
         engine/device faults — clients must not be blamed for server-side
         failures), else account and hand (ids, scores) back to C++."""
-        t0 = time.perf_counter()
-        try:
-            with self.lock:
-                ids, scores = engine_call()
-        except Exception as e:  # noqa: BLE001 — delivered per request
-            status = 400 if isinstance(e, (ValueError, TypeError)) else 500
-            lib.hdb_srv_batch_fail(srv, status, str(e).encode())
-            return
-        self.engine_s += time.perf_counter() - t0
-        self.flushes += 1
-        self.flushed_queries += n
-        self.max_flush = max(self.max_flush, n)
-        k = int(ids.shape[1])
-        ids64 = np.ascontiguousarray(ids, dtype=np.int64)
-        sc32 = np.ascontiguousarray(scores, dtype=np.float32)
-        t0 = time.perf_counter()
-        lib.hdb_srv_batch_complete(
-            srv,
-            ids64.ctypes.data_as(_P_LL),
-            sc32.ctypes.data_as(_P_FLOAT),
-            k,
-        )
-        self.complete_s += time.perf_counter() - t0
+        lib.hdb_srv_batch_wait(srv, self._wait)
+        wait_s, wait_max_s = self._wait[0], self._wait[1]
+        self.queue_s += wait_s
+        self.queued += n
+        with _trace.root_span("native.flush") as flush:
+            if flush:
+                flush.attrs.update(requests=n, queue_s=wait_s, queue_max_s=wait_max_s)
+            t0 = time.perf_counter()
+            try:
+                with self.lock:
+                    ids, scores = engine_call()
+            except Exception as e:  # noqa: BLE001 — delivered per request
+                status = 400 if isinstance(e, (ValueError, TypeError)) else 500
+                lib.hdb_srv_batch_fail(srv, status, str(e).encode())
+                return
+            self.engine_s += time.perf_counter() - t0
+            self.flushes += 1
+            self.flushed_queries += n
+            self.max_flush = max(self.max_flush, n)
+            k = int(ids.shape[1])
+            ids64 = np.ascontiguousarray(ids, dtype=np.int64)
+            sc32 = np.ascontiguousarray(scores, dtype=np.float32)
+            with _trace.span("native.complete"):
+                t0 = time.perf_counter()
+                lib.hdb_srv_batch_complete(
+                    srv,
+                    ids64.ctypes.data_as(_P_LL),
+                    sc32.ctypes.data_as(_P_FLOAT),
+                    k,
+                )
+                self.complete_s += time.perf_counter() - t0
 
     @staticmethod
     def _batch_params(lib, srv):
@@ -339,6 +357,7 @@ class NativeQueryServer:
                 "engine_s": round(self.engine_s, 3),
                 "complete_ms_per_flush": round(1e3 * self.complete_s / f, 2),
                 "idle_s": round(self.idle_s, 3),
+                "queue_ms_per_request": round(1e3 * self.queue_s / max(1, self.queued), 3),
             }
         data = json.dumps(payload).encode()
         lib.hdb_srv_req_respond(

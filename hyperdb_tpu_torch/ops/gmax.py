@@ -80,6 +80,7 @@ from hyperdb_tpu_torch.ops.ranking import (
     gather_dot,
     grouped_metric_operands,
 )
+from hyperdb_tpu_torch.utils import trace as _trace
 
 GROUP = 128  # rows per group; the kernel's corpus block
 
@@ -416,13 +417,17 @@ def rank_top_k_grouped_gmax(queries, vectors, k: int, row_mask=None, recency=Non
         gm, sm = gmax_f_sub(
             queries, vectors, extra, sub=sub, dual=bool(CONFIG.pallas_sub_dual)
         )
-        sidx = _select_subgroups(gm, sm, b, n, k, sub)
-        cs = _rescore(queries, vectors, extra, sidx, sub)
-        return finish_candidates(cs, sidx, b, k, sub)
+        with _trace.span("route.stage2", vectors):
+            sidx = _select_subgroups(gm, sm, b, n, k, sub)
+        with _trace.span("route.stage3", vectors):
+            cs = _rescore(queries, vectors, extra, sidx, sub)
+            return finish_candidates(cs, sidx, b, k, sub)
     gm = gmax_f(queries, vectors, extra)
-    _, gidx = exact_top_k(gm, k)
-    cs = _rescore(queries, vectors, extra, gidx, GROUP)
-    return finish_candidates(cs, gidx, b, k, GROUP)
+    with _trace.span("route.stage2", vectors):
+        _, gidx = exact_top_k(gm, k)
+    with _trace.span("route.stage3", vectors):
+        cs = _rescore(queries, vectors, extra, gidx, GROUP)
+        return finish_candidates(cs, gidx, b, k, GROUP)
 
 
 def rank_top_k_grouped_metric_gmax(
@@ -466,14 +471,15 @@ def rank_top_k_grouped_metric_gmax(
     mask_extra = make_extra(n, row_mask, device=rows.device)
 
     def finish(cidx, width):
-        cs = _grouped_metric_scores(
-            gather_dot(qq, rows, cidx, width),
-            aux32.view(n // width, width)[cidx], q32, metric, d,
-        )
-        cs.masked_fill_(torch.isnan(cs), NEG_INF)
-        if row_mask is not None:
-            cs.masked_fill_(~row_mask.view(n // width, width)[cidx], NEG_INF)
-        return finish_candidates(cs, cidx, b, k, width)
+        with _trace.span("route.stage3", rows):
+            cs = _grouped_metric_scores(
+                gather_dot(qq, rows, cidx, width),
+                aux32.view(n // width, width)[cidx], q32, metric, d,
+            )
+            cs.masked_fill_(torch.isnan(cs), NEG_INF)
+            if row_mask is not None:
+                cs.masked_fill_(~row_mask.view(n // width, width)[cidx], NEG_INF)
+            return finish_candidates(cs, cidx, b, k, width)
 
     if metric == "jaccard_similarity":
         gm = gmax_jaccard(qq, rows, q32.sum(-1, keepdim=True), aux32, mask_extra)
@@ -483,9 +489,12 @@ def rank_top_k_grouped_metric_gmax(
             gm, sm = gmax_f_sub(
                 qq * 2, rows, extra, sub=sub, dual=bool(CONFIG.pallas_sub_dual)
             )
-            return finish(_select_subgroups(gm, sm, b, n, k, sub), sub)
+            with _trace.span("route.stage2", rows):
+                sidx = _select_subgroups(gm, sm, b, n, k, sub)
+            return finish(sidx, sub)
         gm = gmax_f(qq * 2, rows, extra)
-    _, gidx = exact_top_k(gm, k)
+    with _trace.span("route.stage2", rows):
+        _, gidx = exact_top_k(gm, k)
     return finish(gidx, GROUP)
 
 
@@ -519,5 +528,7 @@ def rank_top_k_int8_gmax(queries, v_i8, v_scales, k: int, row_mask=None, recency
         )
     extra = make_extra(v_i8.shape[0], row_mask, recency, device=v_i8.device)
     gm = gmax_int8(q_i8, q_scale, v_i8, v_scales, extra)
-    _, gidx = exact_top_k(gm, k)
-    return _rescore_groups(q_i8, q_scale, v_i8, v_scales, gidx, GROUP, row_mask, recency)
+    with _trace.span("route.stage2", v_i8):
+        _, gidx = exact_top_k(gm, k)
+    with _trace.span("route.stage3", v_i8):
+        return _rescore_groups(q_i8, q_scale, v_i8, v_scales, gidx, GROUP, row_mask, recency)

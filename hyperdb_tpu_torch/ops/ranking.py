@@ -27,6 +27,7 @@ import torch
 from hyperdb_tpu_torch.config import CONFIG
 from hyperdb_tpu_torch.ops import metrics as _metrics
 from hyperdb_tpu_torch.ops.metrics import LOW_PRECISION, scores
+from hyperdb_tpu_torch.utils import trace as _trace
 
 NEG_INF = float("-inf")
 
@@ -452,10 +453,11 @@ def _merge_plane_topk(vals_parts, idx_parts, k: int, offsets):
     concatenate in plane order and :func:`exact_top_k` prefers the lower
     position, so on equal values the earlier plane's entry wins: the LOWER
     global id, which one top-k over the whole corpus would pick."""
-    vals = torch.cat(vals_parts, dim=1)
-    idxs = torch.cat([p + off for p, off in zip(idx_parts, offsets)], dim=1)
-    mv, mi = exact_top_k(vals, k)
-    return mv, torch.gather(idxs, 1, mi)
+    with _trace.span("route.merge", vals_parts[0]):
+        vals = torch.cat(vals_parts, dim=1)
+        idxs = torch.cat([p + off for p, off in zip(idx_parts, offsets)], dim=1)
+        mv, mi = exact_top_k(vals, k)
+        return mv, torch.gather(idxs, 1, mi)
 
 
 def rank_top_k_planar(

@@ -36,6 +36,7 @@ from hyperdb_tpu_torch.ops.quantized import rank_top_k_int8
 from hyperdb_tpu_torch.ops.ranking import rank_top_k
 from hyperdb_tpu_torch.query import filters as _filters
 from hyperdb_tpu_torch.utils import log
+from hyperdb_tpu_torch.utils import trace as _trace
 from hyperdb_tpu_torch.utils.devio import fetch
 
 # Query metric -> constructor/ANN metric (reference hyperdb.py:1453-1459).
@@ -398,86 +399,92 @@ def execute_query_batch_arrays(
     if metric not in METRICS:
         raise ValueError(f"Invalid metric '{metric}'.")
 
-    device_block = isinstance(query_inputs, torch.Tensor) and query_inputs.ndim == 2
-    if device_block:
-        # a block already on the store's device (the text path's
-        # generate_query_vectors_batch_device): it rides into the scan as it
-        # is, never fetched or padded here
-        if query_inputs.device != db._store.device:
-            raise ValueError(
-                f"query block is on {query_inputs.device}, the database on "
-                f"{db._store.device}"
-            )
-        q_block = query_inputs
-    elif isinstance(query_inputs, np.ndarray) and query_inputs.ndim == 2:
-        q_block = (
-            query_inputs
-            if query_inputs.dtype == np.float16
-            else query_inputs.astype(np.float32)
-        )
-    else:
-        q_block = np.stack(
-            [generate_and_validate_query_vector(db, q) for q in query_inputs]
-        ).astype(np.float32)
-    if db.dim is not None and q_block.shape[1] != db.dim:
-        raise ValueError(
-            f"The dimension of the query vectors ({q_block.shape[1]}) must "
-            f"match the dimension of the vectors in the database ({db.dim})."
-        )
+    with _trace.root_span("engine.batch") as batch:
+        with _trace.span("engine.prepare"):
+            device_block = isinstance(query_inputs, torch.Tensor) and query_inputs.ndim == 2
+            if device_block:
+                # a block already on the store's device (the text path's
+                # generate_query_vectors_batch_device): it rides into the scan as it
+                # is, never fetched or padded here
+                if query_inputs.device != db._store.device:
+                    raise ValueError(
+                        f"query block is on {query_inputs.device}, the database on "
+                        f"{db._store.device}"
+                    )
+                q_block = query_inputs
+            elif isinstance(query_inputs, np.ndarray) and query_inputs.ndim == 2:
+                q_block = (
+                    query_inputs
+                    if query_inputs.dtype == np.float16
+                    else query_inputs.astype(np.float32)
+                )
+            else:
+                q_block = np.stack(
+                    [generate_and_validate_query_vector(db, q) for q in query_inputs]
+                ).astype(np.float32)
+            if db.dim is not None and q_block.shape[1] != db.dim:
+                raise ValueError(
+                    f"The dimension of the query vectors ({q_block.shape[1]}) must "
+                    f"match the dimension of the vectors in the database ({db.dim})."
+                )
 
-    # Batch-dim bucketing (HYPERDB_BATCH_BUCKET): pad B up to the next power
-    # of two with copies of row 0 and slice the pad rows off the results, so
-    # both packages scan the same batch shapes. Host-path-sized corpora skip
-    # it (padding could push them onto the device path).
-    b_real = q_block.shape[0]
-    if (
-        not device_block  # device blocks arrive padded to a power of two
-        and CONFIG.batch_bucket
-        and db._store.num_rows * b_real > CONFIG.host_path_max_cells
-    ):
-        b_pad = _pad_pow2(b_real)
-        if b_pad != b_real:
-            q_block = np.concatenate(
-                [q_block, np.repeat(q_block[:1], b_pad - b_real, axis=0)]
-            )
+            # Batch-dim bucketing (HYPERDB_BATCH_BUCKET): pad B up to the next power
+            # of two with copies of row 0 and slice the pad rows off the results, so
+            # both packages scan the same batch shapes. Host-path-sized corpora skip
+            # it (padding could push them onto the device path).
+            b_real = q_block.shape[0]
+            if (
+                not device_block  # device blocks arrive padded to a power of two
+                and CONFIG.batch_bucket
+                and db._store.num_rows * b_real > CONFIG.host_path_max_cells
+            ):
+                b_pad = _pad_pow2(b_real)
+                if b_pad != b_real:
+                    q_block = np.concatenate(
+                        [q_block, np.repeat(q_block[:1], b_pad - b_real, axis=0)]
+                    )
+        if batch:
+            batch.attrs["batch"] = b_real
+            batch.attrs["padded"] = int(q_block.shape[0])
 
-    filters = list(filters) if filters is not None else None
-    base_mask = _base_mask(num_docs, filters)
-    mask = base_mask.copy()
-    override = None
-    if filters:
-        mask, override = _filters.apply_filters(db, filters, mask)
-    n_out = b_real if n_valid is None else min(int(n_valid), b_real)
-    if not mask.any():
-        return (
-            np.zeros((n_out, 0), dtype=np.int64),
-            np.zeros((n_out, 0), dtype=np.float32),
+        with _trace.span("engine.mask"):
+            filters = list(filters) if filters is not None else None
+            base_mask = _base_mask(num_docs, filters)
+            mask = base_mask.copy()
+            override = None
+            if filters:
+                mask, override = _filters.apply_filters(db, filters, mask)
+            n_out = b_real if n_valid is None else min(int(n_valid), b_real)
+            if not mask.any():
+                return (
+                    np.zeros((n_out, 0), dtype=np.int64),
+                    np.zeros((n_out, 0), dtype=np.float32),
+                )
+            k = min(top_k, int(np.count_nonzero(mask)))
+
+        # the surviving ids only where recency needs them, as the JAX engine
+        # does: an index array as long as the corpus, for every batch
+        recency = (
+            None
+            if recency_bias == 0
+            else handle_timestamps(db, recency_bias, timestamp_key, np.flatnonzero(mask))
         )
-
-    k = min(top_k, int(np.count_nonzero(mask)))
-    # the surviving ids only where recency needs them, as the JAX engine
-    # does: an index array as long as the corpus, for every batch
-    recency = (
-        None
-        if recency_bias == 0
-        else handle_timestamps(db, recency_bias, timestamp_key, np.flatnonzero(mask))
-    )
-    doc_ids = scores_out = None
-    if (
-        METRIC_TO_ANN.get(metric) == db.ann_metric
-        and hasattr(db.ann_index, "probe_batch")  # IVF
-        and override is None
-        # IVF probing is host arithmetic: a device block stays on the exact
-        # masked scan instead of paying a fetch
-        and not device_block
-        and num_docs == db._store.num_rows
-        and num_docs >= CONFIG.batch_ivf_min_rows
-        and db._store.precision != "int8-pure"
-    ):
-        budget = max(top_k * 20, -(-int(base_mask.sum()) * ann_percent // 100))
-        doc_ids, scores_out = _rank_block_ivf(db, q_block, mask, recency, metric, k, budget)
-    if doc_ids is None:
-        doc_ids, scores_out = _rank_block(db, q_block, mask, override, recency, metric, k)
+        doc_ids = scores_out = None
+        if (
+            METRIC_TO_ANN.get(metric) == db.ann_metric
+            and hasattr(db.ann_index, "probe_batch")  # IVF
+            and override is None
+            # IVF probing is host arithmetic: a device block stays on the exact
+            # masked scan instead of paying a fetch
+            and not device_block
+            and num_docs == db._store.num_rows
+            and num_docs >= CONFIG.batch_ivf_min_rows
+            and db._store.precision != "int8-pure"
+        ):
+            budget = max(top_k * 20, -(-int(base_mask.sum()) * ann_percent // 100))
+            doc_ids, scores_out = _rank_block_ivf(db, q_block, mask, recency, metric, k, budget)
+        if doc_ids is None:
+            doc_ids, scores_out = _rank_block(db, q_block, mask, override, recency, metric, k)
 
     db.stats.record("query.batch_arrays", _time.perf_counter() - start_time)
     db.stats.bump("query.batch_queries", n_out)
@@ -599,10 +606,11 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k, cand_rows=N
     if device_block:
         q = q_block if q_block.dtype in (torch.float16, torch.float32) else q_block.float()
     else:
-        q_host = np.ascontiguousarray(q_block)
-        if q_host.dtype != np.float16:
-            q_host = q_host.astype(np.float32, copy=False)
-        q = torch.from_numpy(q_host).to(device)
+        with _trace.span("engine.upload"):
+            q_host = np.ascontiguousarray(q_block)
+            if q_host.dtype != np.float16:
+                q_host = q_host.astype(np.float32, copy=False)
+            q = torch.from_numpy(q_host).to(device)
     k_pad = min(_pad_pow2(top_k), bucket_size(num_docs))
 
     if (
@@ -641,17 +649,21 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k, cand_rows=N
         # Unchunked corpus: rows ARE docs — rank rows directly.
         dv = store.device_view(db.source_indices)
         n_pad = dv["n_pad"]
-        if mask.all():
-            row_mask_dev = dv["row_valid"]  # no per-query mask upload
-        else:
-            row_mask = np.zeros(n_pad, dtype=bool)
-            row_mask[:num_docs] = mask
-            row_mask_dev = torch.from_numpy(row_mask).to(device)
-        rec_pad = None
-        if recency is not None:
-            rec_host = np.zeros(n_pad, dtype=np.float32)
-            rec_host[:num_docs] = recency
-            rec_pad = torch.from_numpy(rec_host).to(device)
+        with _trace.span("engine.mask"):
+            row_mask = None
+            if not mask.all():
+                row_mask = np.zeros(n_pad, dtype=bool)
+                row_mask[:num_docs] = mask
+        with _trace.span("engine.upload"):
+            if row_mask is None:
+                row_mask_dev = dv["row_valid"]  # no per-query mask upload
+            else:
+                row_mask_dev = torch.from_numpy(row_mask).to(device)
+            rec_pad = None
+            if recency is not None:
+                rec_host = np.zeros(n_pad, dtype=np.float32)
+                rec_host[:num_docs] = recency
+                rec_pad = torch.from_numpy(rec_host).to(device)
         prenorm = metric == "cosine_similarity"
         precision = store.precision
         k_eff = min(k_pad, n_pad)
@@ -807,5 +819,6 @@ def _rank_block(db, q_block, mask, override, recency, metric, top_k, cand_rows=N
             prenormalized=prenorm,
         )
 
-    idx_h, vals_h = fetch(idx, vals)
+    with _trace.span("engine.readback"):
+        idx_h, vals_h = fetch(idx, vals)
     return idx_h[:, :top_k], vals_h[:, :top_k]

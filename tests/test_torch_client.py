@@ -126,7 +126,8 @@ def test_stats_and_healthz(endpoint):
     for key in ("documents", "chunks", "dim", "ann_metric", "index", "sharded"):
         assert got[1][key] == want[1][key], key
     if endpoint["kind"] == "native":
-        assert set(got[1]["native"]) == set(want[1]["native"]) | {"complete_ms_per_flush"}
+        assert set(got[1]["native"]) == set(want[1]["native"]) | {
+            "complete_ms_per_flush", "queue_ms_per_request"}
 
 
 def test_error_maps_to_exception(endpoint):

@@ -18,6 +18,7 @@ import json
 import socket
 import struct
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -199,11 +200,12 @@ def test_generic_json_paths(served):
                                    [r["score"] for r in theirs[1]["results"]], atol=ATOL)
     assert stats[1]["documents"] == N and stats[1]["dim"] == D
     # the JAX block, plus the time the port's worker spends handing a
-    # flush's answers back to the C++ side
+    # flush's answers back to the C++ side and the batcher's queue wait
     assert set(jstats[1]["native"]) == {
         "flushes", "queries", "mean_flush", "max_flush", "engine_ms_per_flush",
         "engine_s", "idle_s"}
-    assert set(stats[1]["native"]) == set(jstats[1]["native"]) | {"complete_ms_per_flush"}
+    assert set(stats[1]["native"]) == set(jstats[1]["native"]) | {
+        "complete_ms_per_flush", "queue_ms_per_request"}
     assert stats[1]["native"]["flushes"] > 0 and stats[1]["native"]["complete_ms_per_flush"] >= 0
 
 
@@ -295,6 +297,31 @@ def test_close_unblocks_and_is_idempotent():
     srv.close()
     srv.close()  # a second close is a no-op
     assert not srv._worker.is_alive()
+
+
+def test_queue_wait_counter_and_stats():
+    """The batcher's queue wait (enqueue by the I/O thread to hand-over to
+    the worker) is counted for every request of every flush: positive, no
+    larger than the requests' own wall time, and its mean is what /stats
+    reports under ``native.queue_ms_per_request``."""
+    rng = np.random.default_rng(3)
+    v = rng.standard_normal((256, 8)).astype(np.float32)
+    db = TorchDB(documents=[{"i": int(i)} for i in range(256)], vectors=v, device="cpu")
+    with native_server.NativeQueryServer(db, port=0, max_batch=32, window_ms=2.0) as srv:
+        conn = _conn(srv.port)
+        wall = 0.0
+        for i in range(6):
+            t0 = time.perf_counter()
+            status, got = _binary_query(conn, v[i], top_k=3, binary_out=True)
+            wall += time.perf_counter() - t0
+            assert status == 200 and got["ids"][0] == i
+        assert srv.queued == 6
+        # a lone request waits out the 2 ms window before its flush
+        assert 6 * 2e-3 <= srv.queue_s <= wall
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+        assert stats["native"]["queue_ms_per_request"] == round(1e3 * srv.queue_s / srv.queued, 3)
 
 
 def test_failed_library_build_raises(monkeypatch):
