@@ -33,8 +33,11 @@ Phases, one or a few lines each on standard output:
    stage 1 through ``gmax_f``;
    each batch is timed on the host clock and split into the device time
    of its stages;
-5. ``query`` (b = 1) and ``query_batch`` at b = 64 on the plain grouped
-   route, with the same check;
+5. ``query`` (b = 1) and ``query_batch`` at b = 64, each launching
+   ``gmax_f_sub`` once on the ``wgmma`` variant (on the card a batch of any
+   height takes the stage-1 kernels), then b = 64 on the plain grouped route
+   (``CONFIG.pallas_gmax = 0``, no launch), each with the same check and
+   timed;
 6. path B, the grouped metrics on the same DB at b = 512: euclidean,
    hamming and pearson must launch ``gmax_f_sub`` and jaccard
    ``gmax_jaccard``; ids tie-aware equal to a plain reference over the same
@@ -127,8 +130,9 @@ Phases, one or a few lines each on standard output:
    float16 wire block; for text, the flush's own embeddings), and
    ``/healthz`` and ``/stats`` must answer. G1: the native front end, binary
    f32 queries, 32 in flight per connection, at ``max_batch`` 1024 (must
-   launch ``gmax_f_sub``) and at the CLI default 256, then the engine alone
-   at b = 256, 512, 1024; G2: the stdlib front end with its batcher
+   launch ``gmax_f_sub``) and at the CLI default 256 (flushes under 512,
+   which launch it too), then the engine alone at b = 256, 512, 1024, each
+   launching ``gmax_f_sub``; G2: the stdlib front end with its batcher
    (``max_batch`` 64), JSON queries, one in flight per connection; G3: the
    native front end over path E's text DB, ``text/plain`` queries, 16 in
    flight per connection, ``max_batch`` 512 (the encoder's WordPiece must
@@ -1159,6 +1163,15 @@ def zero_launches(G) -> None:
             counter[key] = 0
 
 
+def small_launches(G, name: str, want: dict) -> None:
+    """The launches since the counters were zeroed are ``want`` (by
+    wrapper, the others 0), all on the ``wgmma`` variant."""
+    launched = {key: count for key, count in G.LAUNCHES.items() if count}
+    if launched != want:
+        raise AssertionError(f"{name}: launched {launched}, expected {want}")
+    check_variant(G, name)
+
+
 def check_variant(G, name: str, variant: str = "wgmma") -> dict:
     """Every stage-1 launch since the counters were zeroed ran ``variant``
     (``wgmma`` at the rows of paths A-J, ``wgmma_stream`` at path K's): the
@@ -1173,6 +1186,48 @@ def check_variant(G, name: str, variant: str = "wgmma") -> dict:
             f"the path did not run the {variant} kernel alone"
         )
     return by_variant
+
+
+def path_small_batches(db, corpus, plane, kernels, seed: int, card: str) -> None:
+    """Phase 5 on the main path's DB: ``query_batch`` at b = 64 and ``query``
+    at b = 1 on ``gmax_f_sub`` (on the card every height takes the stage-1
+    kernels), then b = 64 on the plain grouped route with the kernels
+    switched off; each held to the exact reference and timed."""
+    from hyperdb_tpu_torch.config import CONFIG
+    from hyperdb_tpu_torch.ops import gmax as G
+
+    q64 = make_queries(seed + 4, 64, corpus)
+    zero_launches(G)
+    rows = db.query_batch(q64, top_k=TOP_K)
+    small_launches(G, "query_batch b=64", {"gmax_f_sub": 1})
+    ids = np.array([[r[2] for r in row] for row in rows])
+    vals = np.array([[r[1] for r in row] for row in rows], dtype=np.float32)
+    swaps, err = check_ids("query_batch b=64", ids, vals, plane, N_DOCS, q64, TOP_K)
+    log(f"query_batch b=64 (gmax_f_sub): ids tie-aware equal ({swaps} tied swaps, score err {err:.3g})")
+    zero_launches(G)
+    one = db.query(q64[5], top_k=TOP_K)
+    small_launches(G, "query b=1", {"gmax_f_sub": 1})
+    swaps, err = check_ids(
+        "query b=1", np.array([[r[2] for r in one]]),
+        np.array([[r[1] for r in one]], dtype=np.float32), plane, N_DOCS, q64[5:6], TOP_K,
+    )
+    log(f"query b=1 (gmax_f_sub): ids tie-aware equal ({swaps} tied swaps, score err {err:.3g})")
+    kernels["gmax_f_sub"]["launches"] += 2
+    run_batch(db, q64, "kernel route", card)
+    run_batch(db, q64[:1], "kernel route", card)
+    gmax_on = CONFIG.pallas_gmax
+    CONFIG.pallas_gmax = 0
+    try:
+        zero_launches(G)
+        ids, vals = db.query_batch_arrays(q64, top_k=TOP_K, metric="cosine_similarity")
+        small_launches(G, "plain b=64", {})
+        swaps, err = check_ids("plain b=64", ids, vals, plane, N_DOCS, q64, TOP_K)
+        log(f"plain grouped route b=64 (pallas_gmax=0, no launch): ids tie-aware equal "
+            f"({swaps} tied swaps, score err {err:.3g})")
+        run_batch(db, q64, "plain grouped route", card)
+        run_batch(db, q64[:1], "plain grouped route", card)
+    finally:
+        CONFIG.pallas_gmax = gmax_on
 
 
 def path_metrics(db, corpus, kernels, seed: int, card: str) -> None:
@@ -2646,21 +2701,26 @@ def path_serving(db, corpus, kernels, seed: int, card: str) -> None:
                 srv.close()
             log(f"path G {label}: launches {json.dumps(launches)}; /stats native "
                 f"{json.dumps(st['native'])}")
-            if max_batch == 1024:
-                if launches["gmax_f_sub"] < 1:
-                    raise AssertionError("path G1: served traffic at max_batch=1024 did not "
-                                         "launch gmax_f_sub")
-                check_variant(G, "path G1")
-                kernels["gmax_f_sub"]["launches"] += launches["gmax_f_sub"]
+            if launches["gmax_f_sub"] < 1:
+                raise AssertionError(f"path G1: served traffic at max_batch={max_batch} did not "
+                                     "launch gmax_f_sub")
+            check_variant(G, f"path {label}")
+            kernels["gmax_f_sub"]["launches"] += launches["gmax_f_sub"]
             check_served(label, samples, *want)
 
-        # the engine alone at flush sizes on both sides of the kernel's threshold
-        # (a block of 257-511 pads to 512, HYPERDB_BATCH_BUCKET)
+        # the engine alone at the flush sizes of both max_batch settings (a
+        # block of 257-511 pads to 512, HYPERDB_BATCH_BUCKET); on the card
+        # each takes gmax_f_sub, under the JAX package's floor of 512 too
         for b in (256, 512, 1024):
             q16 = payloads[0][:b].astype(np.float16)
+            zero_launches(G)
             ms = wall_ms(lambda: db.query_batch_arrays(q16, top_k=TOP_K), 5)
+            launched = G.LAUNCHES["gmax_f_sub"]
+            if not launched:
+                raise AssertionError(f"path G1 engine alone b={b}: gmax_f_sub not launched")
+            check_variant(G, f"path G1 engine alone b={b}")
             log(f"path G1 engine alone (query_batch_arrays on a float16 block, no server): "
-                f"b={b} ms/batch={ms:.3f} [{card}]")
+                f"b={b} ms/batch={ms:.3f}, gmax_f_sub launches {launched} [{card}]")
 
         # G2: JSON vectors through the stdlib front end and its batcher
         label = "G2 stdlib json max_batch=64"
@@ -4661,20 +4721,8 @@ def main() -> int:
     run_batch(db, q512, "gmax_f path", card)
     CONFIG.pallas_subgroup = sub
 
-    # 5. smaller routes (plain grouped form, no kernel)
-    q64 = make_queries(args.seed + 4, 64, corpus)
-    rows = db.query_batch(q64, top_k=TOP_K)
-    ids = np.array([[r[2] for r in row] for row in rows])
-    vals = np.array([[r[1] for r in row] for row in rows], dtype=np.float32)
-    swaps, err = check_ids("query_batch b=64", ids, vals, plane, N_DOCS, q64, TOP_K)
-    log(f"query_batch b=64: ids tie-aware equal ({swaps} tied swaps, score err {err:.3g})")
-    one = db.query(q64[5], top_k=TOP_K)
-    swaps, err = check_ids(
-        "query b=1", np.array([[r[2] for r in one]]),
-        np.array([[r[1] for r in one]], dtype=np.float32), plane, N_DOCS, q64[5:6], TOP_K,
-    )
-    log(f"query b=1: ids tie-aware equal ({swaps} tied swaps, score err {err:.3g})")
-    run_batch(db, q64, "plain grouped route", card)
+    # 5. smaller batches
+    path_small_batches(db, corpus, plane, kernels, args.seed, card)
 
     # 6. path B: grouped metrics on the same DB
     t = time.perf_counter()

@@ -40,8 +40,22 @@ class EngineConfig:
     # Master switch of the hand-written stage-1 scan kernels (ops/gmax.py).
     # 0 disables them: every scan then takes the plain grouped route.
     pallas_gmax: int = _env_int("HYPERDB_PALLAS_GMAX", 1)
-    # Minimum query-batch height before bf16 dot-form grouped scans route
-    # stage 1 through the gmax kernels. 0 disables the float route.
+    # Minimum query-batch height before bf16 grouped scans route stage 1
+    # through the gmax kernels; 0 disables the float route on every device.
+    # The JAX package's 512 was set on a TPU, where XLA fuses the group max
+    # into the product's epilogue. CPU tensors keep it, so the parity tests
+    # hold both packages to the same routes; so do the euclidean, hamming and
+    # jaccard routes on the card, whose plain form was not timed there. On
+    # the card the dot-form scans take the kernels at every height: their
+    # plain route upcasts the whole plane to f32 and scores it on CUDA cores
+    # on every call, while the CUDA kernel takes any b. Device ms a call on
+    # one H100 at 700 W, k = 128, plain against kernels
+    # (tools/route_sweep.py): 8,388,608 x 768 27.96 / 9.04 at b = 1 and
+    # 106.39 / 15.72 at b = 256; 2^20 x 768 3.87 / 1.39 and 13.78 / 6.36.
+    # From 2^19 rows the kernels win at every b and width; under it the
+    # plain route wins at larger b, since the kernels' stage 3 grows with b
+    # and not with N: 2^18 x 768 4.14 / 5.32 at b = 256, 2^18 x 1536 11.55 /
+    # 18.88 at b = 511 (the widest gap measured).
     pallas_gmax_f_min_batch: int = _env_int(
         "HYPERDB_PALLAS_GMAX_F_MIN_BATCH", 512
     )

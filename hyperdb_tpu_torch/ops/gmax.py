@@ -378,6 +378,22 @@ def _rescore(queries, vectors, extra, cidx, width: int):
     return cs + extra.view(n // width, width)[cidx]
 
 
+def _subgroup(queries) -> int:
+    """Subgroup width of the two-level selection for this query block, or
+    0 for the single-level form (:func:`gmax_f`). ``pallas_subgroup`` must
+    divide 128 and be at least 8. On the card every b takes it: the CUDA
+    kernel takes any query count, and stage 3 then rescores runs of ``sub``
+    rows instead of whole groups. On the CPU only where the JAX route's
+    query tile, min(b, 1024), is a multiple of 128, so that both packages
+    send the same shapes to the same kernel."""
+    sub = CONFIG.pallas_subgroup
+    if not (8 <= sub < GROUP and GROUP % sub == 0):
+        return 0
+    if queries.device.type == "cuda" or min(queries.shape[0], 1024) % 128 == 0:
+        return sub
+    return 0
+
+
 def supported(queries, vectors, k: int) -> bool:
     """Shapes and types the kernels take: bf16 operands (low-precision
     pairs only — f32 corpora score in true f32 on the plain route),
@@ -405,15 +421,11 @@ def rank_top_k_grouped_gmax(queries, vectors, k: int, row_mask=None, recency=Non
             f"N // 128 >= k and d % 8 == 0; got {tuple(queries.shape)} "
             f"{queries.dtype} x {tuple(vectors.shape)} {vectors.dtype}, k={k}"
         )
-    sub = CONFIG.pallas_subgroup
-    if not (8 <= sub < GROUP and GROUP % sub == 0):
-        sub = 0
+    sub = _subgroup(queries)
     n = vectors.shape[0]
     b = queries.shape[0]
     extra = make_extra(n, row_mask, recency, device=vectors.device)
-    # min(b, 1024) is the JAX route's query tile: keeping its rule routes the
-    # same shapes to the same kernel in both packages
-    if sub and min(b, 1024) % 128 == 0:
+    if sub:
         gm, sm = gmax_f_sub(
             queries, vectors, extra, sub=sub, dual=bool(CONFIG.pallas_sub_dual)
         )
@@ -462,9 +474,7 @@ def rank_top_k_grouped_metric_gmax(
             f"bf16 plane with N % 128 == 0, N // 128 >= k and d % 8 == 0; got {metric}, "
             f"{tuple(queries.shape)} x {tuple(rows.shape)} {rows.dtype}, k={k}"
         )
-    sub = CONFIG.pallas_subgroup
-    if not (8 <= sub < GROUP and GROUP % sub == 0):
-        sub = 0
+    sub = _subgroup(qq)
     n, d = rows.shape
     b = queries.shape[0]
     aux32 = row_aux.float()
@@ -485,7 +495,7 @@ def rank_top_k_grouped_metric_gmax(
         gm = gmax_jaccard(qq, rows, q32.sum(-1, keepdim=True), aux32, mask_extra)
     else:
         extra = mask_extra - aux32  # -inf on masked rows survives
-        if sub and min(b, 1024) % 128 == 0:  # the float route's tile rule
+        if sub:
             gm, sm = gmax_f_sub(
                 qq * 2, rows, extra, sub=sub, dual=bool(CONFIG.pallas_sub_dual)
             )

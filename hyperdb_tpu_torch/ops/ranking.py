@@ -8,9 +8,10 @@ stored as separate planes), the plain grouped form
 :func:`rank_top_k_manhattan_stream`, the chunk-aware document ranking
 :func:`rank_docs_top_k`, the materialising fallback over the seven
 metrics, the IVF candidate scan :func:`rank_gathered`, and the reference's
-list-level :func:`ranking_algorithm_sort`. Batches at or above
-``CONFIG.pallas_gmax_f_min_batch`` over a bf16 plane go to the stage-1
-kernels (``ops/gmax.py``); manhattan batches at or above
+list-level :func:`ranking_algorithm_sort`. Batches over a bf16 plane go
+to the stage-1 kernels (``ops/gmax.py``) at or above
+``CONFIG.pallas_gmax_f_min_batch``, and on the card the dot-form ones at
+every height (:func:`_use_gmax`); manhattan batches at or above
 ``CONFIG.pallas_l1_min_batch`` to the L1 kernels (``ops/l1.py``).
 
 Semantics kept from the reference ranker (ranking_algorithm.py:149-204):
@@ -138,10 +139,11 @@ def rank_top_k_grouped(
     one (B, N) matrix; the JAX form rescores the winning groups instead of
     gathering them, which selects the same rows."""
     n = vectors.shape[0]
-    s = _scrub(_metrics.qv_dot(queries, vectors), row_mask, recency)
-    if n % group or n <= k * group:
-        return exact_top_k(s, k)
-    return exact_top_k_grouped(s, k, group=group)
+    with _trace.span("route.plain", vectors):
+        s = _scrub(_metrics.qv_dot(queries, vectors), row_mask, recency)
+        if n % group or n <= k * group:
+            return exact_top_k(s, k)
+        return exact_top_k_grouped(s, k, group=group)
 
 
 def _manhattan_tile(batch: int, n: int, k: int = 1) -> int:
@@ -299,7 +301,10 @@ def rank_top_k_grouped_metric(
     n, d = rows.shape
     b = queries.shape[0]
 
-    if recency is None and _use_gmax(qq, rows, k):
+    # the batch floor holds on the card too: its sweep timed the dot route,
+    # whose plain form upcasts the plane to f32; this one multiplies it as
+    # it is (``metrics.dot_f32``)
+    if recency is None and _use_gmax(qq, rows, k, small_on_card=False):
         from hyperdb_tpu_torch.ops.gmax import rank_top_k_grouped_metric_gmax
 
         return rank_top_k_grouped_metric_gmax(
@@ -334,15 +339,20 @@ def rank_top_k_grouped_metric(
     return finish_candidates(cs, gidx, b, k, group)
 
 
-def _use_gmax(queries, vectors, k: int) -> bool:
-    """Route big-batch bf16 dot-form scans through the stage-1 kernels.
+def _use_gmax(queries, vectors, k: int, *, small_on_card: bool = True) -> bool:
+    """Route bf16 scans through the stage-1 kernels.
 
     The JAX route's conditions, without its CPU bail-out and its TPU block
-    rules: on a CPU tensor the kernel wrappers run their plain versions."""
+    rules. On a CPU tensor the kernel wrappers run their plain versions and
+    the JAX package's batch floor (``pallas_gmax_f_min_batch``) holds; on
+    the card a batch of any height goes, if :func:`gmax.supported` accepts
+    it, unless ``small_on_card`` is False (the floor then holds there too)."""
     from hyperdb_tpu_torch.ops import gmax as _gmax  # gmax imports this module
 
     min_b = CONFIG.pallas_gmax_f_min_batch
-    if not CONFIG.pallas_gmax or min_b <= 0 or queries.shape[0] < min_b:
+    if not CONFIG.pallas_gmax or min_b <= 0:
+        return False
+    if queries.shape[0] < min_b and not (small_on_card and queries.device.type == "cuda"):
         return False
     return _gmax.supported(queries, vectors, k)
 

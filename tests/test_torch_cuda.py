@@ -259,6 +259,56 @@ def test_planar_db_on_card_matches_one_plane_and_cpu(dev, monkeypatch, metric, b
     _near_tie_aware(gi, gv, pi, pv, 1e-5 * np.abs(pv) + ATOL + flip)
 
 
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("b", [1, 3, 32, 64, 128, 256])
+def test_small_batches_take_the_kernels_over_planes(dev, monkeypatch, b, filtered):
+    """On the card a batch under the JAX package's floor of 512 takes the
+    stage-1 kernels: ``gmax_f_sub`` once a plane at every b, the subgroup
+    form under 128 too. Over two bf16 planes, with
+    and without a row mask and recency, it answers as the plain grouped
+    route does (the kernels switched off): the same ids up to near-ties.
+    A duplicate across the planes ties exactly on the kernel route and
+    goes to the lower global id; the plain route's f32 products over
+    planes of other lengths may sum it in other orders, so there it is a
+    near-tie."""
+    from hyperdb_tpu_torch.config import CONFIG
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    rng = np.random.default_rng(30 + b)
+    sizes = (16384, 8192)
+    rows = [rng.standard_normal((n, 384)).astype(np.float32) for n in sizes]
+    for v in rows:
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        v[777] = np.nan
+    rows[1][100] = rows[0][3]
+    q = rng.standard_normal((b, 384)).astype(np.float32)
+    q[0] = rows[0][3]
+    kw = {}
+    if filtered:
+        masks = [rng.random(n) < 0.9 for n in sizes]
+        recs = [(rng.random(n) * 0.05).astype(np.float32) for n in sizes]
+        masks[0][3] = masks[1][100] = True
+        recs[0][3] = recs[1][100] = 0.0
+        kw = {
+            "row_masks": [torch.from_numpy(m).to(dev) for m in masks],
+            "recencies": [torch.from_numpy(r).to(dev) for r in recs],
+        }
+    planes = [torch.from_numpy(v).to(dev).bfloat16() for v in rows]
+    qt = torch.from_numpy(q).to(dev)
+    before = G.LAUNCHES["gmax_f_sub"]
+    gv, gi = R.rank_top_k_planar(qt, planes, 16, prenormalized=True, **kw)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["gmax_f_sub"] == before + len(planes)
+    monkeypatch.setattr(CONFIG, "pallas_gmax", 0)
+    pv, pi = R.rank_top_k_planar(qt, planes, 16, prenormalized=True, **kw)
+    assert G.LAUNCHES["gmax_f_sub"] == before + len(planes)
+    gv, gi, pv, pi = (t.cpu().numpy() for t in (gv, gi, pv, pi))
+    _near_tie_aware(gi, gv, pi, pv, 1e-5 * np.abs(pv) + ATOL)
+    assert sorted(gi[0, :2]) == sorted(pi[0, :2]) == [3, sizes[0] + 100]
+    # the kernel route rescores both copies alike: an exact tie, to the lower id
+    assert gv[0, 0] == gv[0, 1] and gi[0, 0] == 3
+
+
 @pytest.mark.parametrize("b,n,d", [(128, 4096, 384), (77, 2048, 128), (300, 1024, 48), (8, 256, 1024)])
 def test_gmax_int8_kernel_equals_plain(dev, b, n, d):
     rng = np.random.default_rng(b)
@@ -392,6 +442,38 @@ def test_metric_db_on_card_matches_cpu(dev, monkeypatch, metric, kernel):
         assert G.LAUNCHES == before
     pi, pv = cpu.query_batch_arrays(q, top_k=10, metric=metric, **kw)
     assert np.abs(gv - pv).max() <= ATOL and (gi == pi).mean() > 0.99
+
+
+@pytest.mark.parametrize(
+    "metric, kernel",
+    [
+        ("euclidean_metric", None),
+        ("hamming_distance", None),
+        ("jaccard_similarity", None),
+        ("pearson_correlation", "gmax_f_sub"),
+    ],
+)
+def test_metric_routes_keep_the_batch_floor_on_card(dev, monkeypatch, metric, kernel):
+    """Under 512 queries the euclidean, hamming and jaccard routes stay on
+    their plain form on the card as on the CPU; pearson, a dot scan, takes
+    ``gmax_f_sub`` at any height. Answers as the CPU gives them."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.config import CONFIG
+
+    monkeypatch.setattr(CONFIG, "grouped_topk_min_rows", 4096)
+    rng = np.random.default_rng(11)
+    v = (rng.standard_normal((16384, 384)) / np.sqrt(384)).astype(np.float16)
+    q = rng.standard_normal((64, 384)).astype(np.float32)
+    card = HyperDB([{} for _ in range(16384)], v, fp_precision="float16", device=dev)
+    cpu = HyperDB([{} for _ in range(16384)], v, fp_precision="float16", device="cpu")
+    before = dict(G.LAUNCHES)
+    gi, gv = card.query_batch_arrays(q, top_k=10, metric=metric)
+    want = {**before, kernel: before[kernel] + 1} if kernel else before
+    assert G.LAUNCHES == want
+    pi, pv = cpu.query_batch_arrays(q, top_k=10, metric=metric)
+    exact = metric in ("hamming_distance", "jaccard_similarity")
+    assert np.abs(gv - pv).max() <= (0.0 if exact else ATOL)
+    assert (gi == pi).all() if exact else (gi == pi).mean() > 0.99
 
 
 STRESS_B = [1, 63, 64, 77, 128, 129, 640]

@@ -12,6 +12,8 @@ products in different orders); 1e-5 relative plus 1e-5 absolute for the
 raw-valued metrics. Ids must be identical, ties going to the lower index.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,6 +97,76 @@ def test_router_takes_gmax_route_at_min_batch(grouped, monkeypatch):
     monkeypatch.setattr(TORCH_CONFIG, "pallas_gmax", 0)
     TR.rank_top_k(q, tv, K, prenormalized=True)
     assert calls == [1]
+
+
+def _stand_ins(device, b, n, d, dtype=torch.bfloat16):
+    """A (b, d) query block and an (n, d) plane as the router sees them:
+    their device, shapes and dtypes alone (no card needed for a CUDA one)."""
+    dev = torch.device(device)
+    return (
+        types.SimpleNamespace(shape=torch.Size((b, d)), dtype=dtype, device=dev),
+        types.SimpleNamespace(shape=torch.Size((n, d)), dtype=dtype, device=dev),
+    )
+
+
+@pytest.mark.parametrize(
+    "device,b,n,want",
+    [("cuda", 1, 1 << 20, True), ("cuda", 127, 1 << 20, True), ("cuda", 128, 1 << 20, True),
+     ("cuda", 511, 1 << 20, True), ("cuda", 256, 8_388_608, True),
+     ("cuda", 256, 1 << 18, True), ("cuda", 512, 1 << 18, True),
+     ("cpu", 511, 1 << 20, False), ("cpu", 512, 1 << 20, True), ("cpu", 1, 8_388_608, False)],
+)
+def test_gmax_rule_by_device_and_batch(device, b, n, want, monkeypatch):
+    """On the card a bf16 dot-form batch of any height takes the stage-1
+    kernels; on the CPU the JAX package's floor (512 by default) holds."""
+    monkeypatch.setattr(TORCH_CONFIG, "pallas_gmax_f_min_batch", 512)
+    assert TR._use_gmax(*_stand_ins(device, b, n, 768), 128) is want
+
+
+@pytest.mark.parametrize(
+    "device,b,want",
+    [("cuda", 1, False), ("cuda", 256, False), ("cuda", 511, False), ("cuda", 512, True),
+     ("cpu", 511, False), ("cpu", 512, True)],
+)
+def test_gmax_rule_keeps_the_floor_for_the_metric_routes(device, b, want, monkeypatch):
+    """The euclidean, hamming and jaccard routes keep the JAX package's
+    floor on the card too, as ``rank_top_k_grouped_metric`` asks."""
+    monkeypatch.setattr(TORCH_CONFIG, "pallas_gmax_f_min_batch", 512)
+    qq, rows = _stand_ins(device, b, 1 << 20, 768)
+    assert TR._use_gmax(qq, rows, 128, small_on_card=False) is want
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("knob", ["pallas_gmax_f_min_batch", "pallas_gmax"])
+def test_gmax_rule_switched_off(device, knob, monkeypatch):
+    monkeypatch.setattr(TORCH_CONFIG, knob, 0)
+    for b in (1, 128, 512, 4096):
+        assert not TR._use_gmax(*_stand_ins(device, b, 1 << 20, 768), 128)
+
+
+@pytest.mark.parametrize(
+    "n,d,dtype,k",
+    [(1 << 20, 768, torch.float32, 128), ((1 << 20) + 64, 768, torch.bfloat16, 128),
+     (1 << 20, 768, torch.bfloat16, 8193), (1 << 20, 772, torch.bfloat16, 128)],
+)
+def test_gmax_rule_keeps_shapes_the_kernel_refuses(n, d, dtype, k):
+    """On the card too: an f32 plane, N not a multiple of 128, fewer than k
+    groups, d not a multiple of 8 stay on the plain route."""
+    assert TR._use_gmax(*_stand_ins("cuda", 1, 1 << 20, 768), 128)
+    assert not TR._use_gmax(*_stand_ins("cuda", 1, n, d, dtype), k)
+
+
+@pytest.mark.parametrize(
+    "device,b,sub,want",
+    [("cuda", 1, 32, 32), ("cuda", 3, 32, 32), ("cuda", 64, 32, 32), ("cuda", 600, 32, 32),
+     ("cuda", 64, 0, 0), ("cuda", 64, 128, 0), ("cpu", 64, 32, 0), ("cpu", 128, 32, 32),
+     ("cpu", 600, 32, 0), ("cpu", 2048, 32, 32)],
+)
+def test_subgroup_form_by_device_and_batch(device, b, sub, want, monkeypatch):
+    """The two-level form on the card at every b; on the CPU where the JAX
+    route's query tile, min(b, 1024), is a multiple of 128."""
+    monkeypatch.setattr(TORCH_CONFIG, "pallas_subgroup", sub)
+    assert G._subgroup(_stand_ins(device, b, 1 << 20, 768)[0]) == want
 
 
 def _metric_inputs():
