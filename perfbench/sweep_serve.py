@@ -32,7 +32,7 @@ def main(argv=None) -> int:
     from hyperdb_tpu_torch.native.server import NativeQueryServer
     from perfbench import program
     from perfbench.data import Corpus, sub_seed
-    from perfbench.drivers.serve_open import drive, pin_process, split_cores
+    from perfbench.drivers.serve_open import drive, pin_process, placement
     from perfbench.run import set_environment
     from perfbench.spec import load_cell
 
@@ -46,7 +46,8 @@ def main(argv=None) -> int:
     spec = load_cell(a.workload)
     cfg, tr = spec["config"], spec["traffic"]
     dev = torch.device("cuda", 0)
-    pin_process(split_cores(int(tr["client_cores"]))[0])
+    place = placement(tr)
+    pin_process(place["server"])
     corpus = Corpus(cfg, a.seed, dev)
     pool = corpus.queries(int(tr["pool"]))
     db, build_s = program.build_db(corpus.host_master(), pool[0], cfg, dev)
@@ -60,7 +61,8 @@ def main(argv=None) -> int:
             f0, q0 = server.flushes, server.flushed_queries
             rng = np.random.default_rng(sub_seed(a.seed, "sweep", rate))
             with tempfile.TemporaryDirectory(prefix="perfbench-sweep-") as tmp:
-                r = drive(server.port, pool, tr, rate, a.seconds, rng, Path(tmp), int(cfg["top_k"]), cfg["metric"])
+                r = drive(server.port, pool, tr, rate, a.seconds, rng, Path(tmp), int(cfg["top_k"]), cfg["metric"],
+                          place)
             lat = r["lat_ms"][np.isfinite(r["lat_ms"])]
             late = r["lateness_ms"][np.isfinite(r["lateness_ms"])]
             flushes = server.flushes - f0
@@ -71,6 +73,7 @@ def main(argv=None) -> int:
                 "p99_ms": float(np.percentile(lat, 99)) if lat.size else None,
                 "first_second_median_ms": r["window_lat_first_last_s"][0],
                 "last_second_median_ms": r["window_lat_first_last_s"][1],
+                "lateness_p99_ms": float(np.percentile(late, 99)) if late.size else None,
                 "lateness_max_ms": float(np.max(late)) if late.size else None,
                 "mean_flush": (server.flushed_queries - q0) / max(1, flushes),
             }), flush=True)

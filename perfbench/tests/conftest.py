@@ -37,11 +37,14 @@ def tiny_spec(cell: str, rows: int = 8192, dim: int = 768, **traffic) -> dict:
         tr.update(pool=1024, batch=256, sample_queries=128, profile_batches=2)
     else:
         tr.update(pool=256, rate_per_s=150, warm_s=0.5, start_delay_s=0.5, sample_requests=64,
-                  connections=2, profile_s=0.3, client_cores=0)
+                  connections=2, profile_s=0.3, client_processes=2)
     tr.update(traffic)
     return spec
 
 
 @pytest.fixture
-def tiny():
+def tiny(monkeypatch):
+    # a served run pins its own process to the server's CPUs; in a test that
+    # process is the test runner, which keeps every CPU
+    monkeypatch.setattr("perfbench.drivers.serve_open.pin_process", lambda cpus: None)
     return tiny_spec

@@ -110,7 +110,8 @@ WIDTH = {"cohere768-10m.batch": 768, "openai1536-5m.batch": 1536, "cohere768-10m
 HOST_METRICS = {
     "cohere768-10m.batch": {"engine.mask_ms.batch", "engine.upload_ms.batch", "store.planes_s"},
     "openai1536-5m.batch": {"engine.mask_ms.batch", "engine.upload_ms.batch", "store.planes_s"},
-    "cohere768-10m.serve": {"native.queue_ms.serve", "native.worker_idle_share.serve", "store.planes_s"},
+    "cohere768-10m.serve": {"native.queue_ms.serve", "native.worker_idle_share.serve", "store.planes_s",
+                            "request.p99_ms.serve"},
 }
 
 
