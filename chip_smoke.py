@@ -275,6 +275,17 @@ Phases, one or a few lines each on standard output:
    after the load and after the first b = 512 batch, which must add less
    than one plane. Files go under ``build/smoke_parity/`` and are removed.
 
+20. path N, stage 3's kernel (after path K): ``ranking.gather_dot`` on bf16
+   operands launches ``csrc/gather_dot.cu`` (section 3 asserts that the main
+   path's stage 3 launched it at both batches). At the benchmark cells'
+   stage-3 shapes, b = 1024, k = 128 runs of 32 rows over seeded bf16 planes
+   of 8,388,608 x 768, 2,097,152 x 768 and 5,242,880 x 1536, and b = 32 over
+   the two 768-d planes: the kernel held to the plain form (gather, upcast,
+   batched product) within 2^-20 of the sum of the products' magnitudes and
+   timed beside its bound (every (query, run) pair's bytes once at the
+   memory rate), the plain form and its batched product alone
+   (``library_ms``); the bytes of the distinct runs beside the pairs'.
+
 Then a JSON line describing every kernel (path K's as "<name> d=4480"), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no last line. It needs one CUDA device and refuses to run
@@ -4644,6 +4655,86 @@ def path_parity(db, main, kernels, seed: int, card: str) -> None:
     log(f"path M: {time.perf_counter() - t:.1f} s")
 
 
+# path N: stage 3's kernel at the benchmark cells' shapes; (label, b, plane rows, d)
+N_SHAPES = [
+    ("cohere plane 0", 1024, 8_388_608, 768),
+    ("cohere plane 1", 1024, 2_097_152, 768),
+    ("openai plane", 1024, 5_242_880, 1536),
+    ("cohere plane 0 flush", 32, 8_388_608, 768),
+    ("cohere plane 1 flush", 32, 2_097_152, 768),
+]
+N_K, N_WIDTH = 128, 32  # candidate runs a query and rows a run, as the cells' routes send
+
+
+def stage3_bound_ms(b: int, k: int, width: int, d: int) -> float:
+    """Least time of one stage-3 product: its bytes over the memory rate,
+    every (query, run) pair's rows counted once (runs that several queries
+    share are counted for each), plus the queries, the run ids and the f32
+    output."""
+    nbytes = 2.0 * b * k * width * d + 2.0 * b * d + 8.0 * b * k + 4.0 * b * k * width
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def path_stage3(seed: int, card: str) -> dict:
+    """Path N: ``ranking.gather_dot`` on the card (``csrc/gather_dot.cu``) at
+    the benchmark cells' stage-3 shapes, over seeded bf16 planes of their
+    rows and widths and seeded run ids: each held to the plain form (within
+    2^-20 of the sum of the products' magnitudes) and timed beside its bound,
+    the plain form and the plain form's batched product alone
+    (``library_ms``, over the gathered f32 block); the bytes of the distinct
+    runs are printed too. Returns the kernels-line entry of the first
+    shape."""
+    from hyperdb_tpu_torch.ops import ranking as R
+
+    dev = card_device()
+    free_device("path N start")
+    entry = None
+    for label, b, n, d in N_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(seed + n + b)
+        plane = torch.randn((n, d), generator=g, device=dev, dtype=torch.bfloat16)
+        q = torch.randn((b, d), generator=g, device=dev, dtype=torch.bfloat16)
+        cidx = torch.randint(0, n // N_WIDTH, (b, N_K), generator=g, device=dev)
+        before = R.LAUNCHES["gather_dot"]
+        got = R.gather_dot(q, plane, cidx, N_WIDTH)
+        torch.cuda.synchronize()
+        if R.LAUNCHES["gather_dot"] != before + 1:
+            raise AssertionError(f"path N {label}: gather_dot did not launch its kernel")
+        want = R.gather_dot_plain(q, plane, cidx, N_WIDTH)
+        ms = cuda_ms(lambda: R.gather_dot(q, plane, cidx, N_WIDTH), reps=20)
+        plain_ms = cuda_ms(lambda: R.gather_dot_plain(q, plane, cidx, N_WIDTH), reps=3, warmup=1)
+        block = plane.view(n // N_WIDTH, N_WIDTH, d)[cidx].float().view(b, N_K * N_WIDTH, d)
+        q3 = q.float()[:, :, None]
+        lib_ms = cuda_ms(lambda: torch.matmul(block, q3), reps=5, warmup=1)
+        mag = torch.matmul(block.abs_(), q3.abs()).view(b, N_K, N_WIDTH)
+        del block
+        err = (got - want).abs()
+        if not torch.isfinite(got).all() or (err > 2.0**-20 * mag).any():
+            raise AssertionError(
+                f"path N {label}: kernel off the plain form by more than 2^-20 of the "
+                f"magnitudes (max abs {float(err.max()):.3g})"
+            )
+        rel = float((err / mag.clamp_min(1e-30)).max())
+        distinct = int(torch.unique(cidx).numel())
+        bound = stage3_bound_ms(b, N_K, N_WIDTH, d)
+        log(
+            f"kernel gather_dot {label}: b={b} k={N_K} width={N_WIDTH} rows={n} d={d} "
+            f"max_abs_err={float(err.max()):.3g} max_err/magnitude={rel:.3g} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} (bytes) "
+            f"bound/ms={bound / ms:.3f} pair_bytes={2 * b * N_K * N_WIDTH * d} "
+            f"distinct_runs={distinct} distinct_bytes={2 * distinct * N_WIDTH * d} [{card}]"
+        )
+        if entry is None:
+            entry = {
+                "name": "gather_dot", "route": "cuda", "source": "hyperdb_tpu_torch/csrc/gather_dot.cu",
+                "replaces": "none (XLA gather + einsum, hyperdb_tpu/ops/pallas_gmax.py:668-673)",
+                "launches": 0, "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            }
+        del plane, q, cidx, got, want, mag, err
+        free_device(f"path N {label}")
+    return entry
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4656,6 +4747,7 @@ def main() -> int:
     from hyperdb_tpu_torch.config import CONFIG
     from hyperdb_tpu_torch.ops import cuda_build
     from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops import ranking as R
 
     # 1. environment and build
     t_start = time.perf_counter()
@@ -4684,13 +4776,18 @@ def main() -> int:
     q512 = make_queries(args.seed + 2, 512, corpus)
     q16k = make_queries(args.seed + 3, 16384, corpus)
     zero_launches(G)
+    stage3_before = R.LAUNCHES["gather_dot"]
     i512, v512 = db.query_batch_arrays(q512, top_k=TOP_K, metric="cosine_similarity")
     i16k, v16k = db.query_batch_arrays(q16k, top_k=TOP_K, metric="cosine_similarity")
     launches = dict(G.LAUNCHES)
     by_variant = check_variant(G, "main path")
-    log(f"main path launches: {json.dumps(launches)} by variant: {json.dumps(by_variant)}")
+    stage3 = R.LAUNCHES["gather_dot"] - stage3_before
+    log(f"main path launches: {json.dumps(launches)} by variant: {json.dumps(by_variant)}; "
+        f"stage 3 gather_dot: {stage3}")
     if launches["gmax_f_sub"] < 2:
         raise AssertionError("the main path did not launch gmax_f_sub at both batches")
+    if stage3 < 2:
+        raise AssertionError("the main path's stage 3 did not launch gather_dot at both batches")
     kernels["gmax_f_sub"]["launches"] = launches["gmax_f_sub"]
     swaps, err = check_ids("b=512", i512, v512, plane, N_DOCS, q512, TOP_K)
     if list(i512[0, :2]) != [4, 17]:
@@ -4790,12 +4887,15 @@ def main() -> int:
     # 17. path K: deep rows (2^20 x 4480), the streaming variant
     path_deep(kernels, args.seed, card)
 
+    # 20. path N: stage 3's kernel at the benchmark cells' shapes
+    kernels["gather_dot"] = {**path_stage3(args.seed, card), "launches": stage3}
+
     # 14. path H4: the multi-process launchers
     t = time.perf_counter()
     path_multiprocess(card)
     log(f"path H4: {time.perf_counter() - t:.1f} s")
 
-    names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard", "gmax_l1", "gmax_l1t",
+    names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard", "gmax_l1", "gmax_l1t", "gather_dot",
              *(f"{name} d={K_DIM}" for name in ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard")))
     for name in names:
         if kernels[name]["launches"] < 1:

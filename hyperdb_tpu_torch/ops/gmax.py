@@ -4,8 +4,10 @@ Counterpart of ``hyperdb_tpu/ops/pallas_gmax.py``: stage 1 computes one
 score per (query, row) on tensor cores, scrubs NaN to -inf, and keeps only
 the max of every ``sub``-row subgroup and/or 128-row group; stage 2 selects
 the top-k groups, then (float route) the top-k subgroups inside them
-(:func:`_select_subgroups`); stage 3 gathers those rows, rescores them in
-f32 and takes the final top-k (:func:`_finish_candidates`). ``extra`` folds
+(:func:`_select_subgroups`); stage 3 rescores those rows in f32
+(``ranking.gather_dot``; over a bf16 plane on the card one kernel,
+``csrc/gather_dot.cu``, reads them in place) and takes the final top-k
+(``ranking.finish_candidates``). ``extra`` folds
 masks and recency into one additive vector (0 or the recency on live rows,
 -inf on masked or padding rows), so stage 1 and stage 3 score the same
 function and the containment argument of the JAX route holds: every true

@@ -12,7 +12,9 @@ list-level :func:`ranking_algorithm_sort`. Batches over a bf16 plane go
 to the stage-1 kernels (``ops/gmax.py``) at or above
 ``CONFIG.pallas_gmax_f_min_batch``, and on the card the dot-form ones at
 every height (:func:`_use_gmax`); manhattan batches at or above
-``CONFIG.pallas_l1_min_batch`` to the L1 kernels (``ops/l1.py``).
+``CONFIG.pallas_l1_min_batch`` to the L1 kernels (``ops/l1.py``). The
+grouped routes' stage 3, :func:`gather_dot`, runs bf16 operands on the card
+through ``csrc/gather_dot.cu`` (``LAUNCHES`` counts its launches).
 
 Semantics kept from the reference ranker (ranking_algorithm.py:149-204):
 NaN scores become -inf before recency is added; masks act as an additive
@@ -22,10 +24,13 @@ one the grouped routes rely on (see :func:`exact_top_k`).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from hyperdb_tpu_torch.config import CONFIG
+from hyperdb_tpu_torch.ops import cuda_build
 from hyperdb_tpu_torch.ops import metrics as _metrics
 from hyperdb_tpu_torch.ops.metrics import LOW_PRECISION, scores
 from hyperdb_tpu_torch.utils import trace as _trace
@@ -37,6 +42,9 @@ _LOW32 = (1 << 32) - 1
 # f32 score cells per chunk of the plain forms and of the stage-3 rescore:
 # bounds their temporaries at full corpus size on the card.
 _CHUNK_CELLS = 1 << 28
+
+# launches of csrc/gather_dot.cu (stage 3 over bf16 operands on the card)
+LAUNCHES = {"gather_dot": 0}
 
 
 def exact_top_k(s: torch.Tensor, k: int):
@@ -87,22 +95,82 @@ def gather_dot(queries, rows, cidx, width: int):
     """Stage 3's product: exact f32 inner products of each query with its
     (B, k) candidate runs ``cidx`` of ``width`` rows -> (B, k, width).
 
-    Both operands are upcast before the product: a bf16 product on the card
-    would round its output to bf16 (int8 rows upcast exactly). Chunked over
-    queries to bound the gathered (c, k, width, d) block; chunking changes
-    no result."""
+    bf16 operands on the card go to one hand-written kernel
+    (:func:`gather_dot_kernel`) that reads each run in place. Everything else
+    (CPU tensors, int8 rows, f16 and f32 rows) takes :func:`gather_dot_plain`."""
+    if queries.is_cuda and rows.is_cuda and queries.dtype == rows.dtype == torch.bfloat16:
+        return gather_dot_kernel(queries, rows, cidx, width)
+    return gather_dot_plain(queries, rows, cidx, width)
+
+
+def gather_dot_plain(queries, rows, cidx, width: int):
+    """Plain form of :func:`gather_dot`. Both operands are upcast before the
+    product: a bf16 product on the card would round its output to bf16 (int8
+    rows upcast exactly). Chunked over queries to bound the gathered
+    (c, k, width, d) block; chunking changes no result. A chunk never holds
+    a lone query unless b is 1: the batched product takes another path, which
+    rounds otherwise, for a batch of one."""
     n, d = rows.shape
     b, k = cidx.shape
     r3 = rows.view(n // width, width, d)
     out = torch.empty((b, k, width), dtype=torch.float32, device=queries.device)
-    chunk = max(1, (_CHUNK_CELLS * 4) // (k * width * d))
-    for a in range(0, b, chunk):
-        cand = r3[cidx[a : a + chunk]].float()  # (c, k, width, d)
-        c = cand.shape[0]
-        q = queries[a : a + chunk].float()
-        out[a : a + c] = torch.matmul(
-            cand.view(c, k * width, d), q[:, :, None]
+    chunk = max(2, (_CHUNK_CELLS * 4) // (k * width * d))
+    a = 0
+    while a < b:
+        e = b if b - a <= chunk + 1 else a + chunk
+        cand = r3[cidx[a:e]].float()  # (c, k, width, d)
+        c = e - a
+        out[a:e] = torch.matmul(
+            cand.view(c, k * width, d), queries[a:e].float()[:, :, None]
         ).view(c, k, width)
+        a = e
+    return out
+
+
+def _gather_dot_fn():
+    fn = cuda_build.load("gather_dot").gather_dot
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_dot_kernel(queries, rows, cidx, width: int):
+    """:func:`gather_dot` through ``csrc/gather_dot.cu``: (B, d) bf16
+    queries, an (N, d) bf16 plane with N % width == 0 and d % 8 == 0, (B, k)
+    int64 run ids, all CUDA tensors on one device, contiguous and 16-byte
+    aligned; anything else raises. Sums in another order than the plain
+    form's GEMV, the same from launch to launch."""
+    n, d = rows.shape
+    b, k = cidx.shape
+    tensors = (queries, rows, cidx)
+    if not all(t.is_cuda and t.device == rows.device for t in tensors):
+        raise ValueError("gather_dot_kernel takes CUDA tensors on one device")
+    if queries.dtype != torch.bfloat16 or rows.dtype != torch.bfloat16:
+        raise ValueError("gather_dot_kernel takes bfloat16 queries and rows")
+    if cidx.dtype != torch.int64:
+        raise ValueError("gather_dot_kernel takes int64 run ids")
+    if tuple(queries.shape) != (b, d) or width <= 0 or n % width or d % 8:
+        raise ValueError(
+            f"unsupported shapes q={tuple(queries.shape)} rows={tuple(rows.shape)} "
+            f"cidx={tuple(cidx.shape)} width={width}"
+        )
+    if not all(t.is_contiguous() for t in tensors) or (queries.data_ptr() | rows.data_ptr()) % 16:
+        raise ValueError("gather_dot_kernel takes contiguous tensors, 16-byte-aligned operands")
+    out = torch.empty((b, k, width), dtype=torch.float32, device=rows.device)
+    if out.numel() == 0:
+        return out
+    fn = _gather_dot_fn()  # builds on first use; raises if the library cannot be built
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    rc = fn(
+        queries.data_ptr(), rows.data_ptr(), cidx.data_ptr(), out.data_ptr(),
+        b, k, width, d, n // width, stream,
+    )
+    if rc:
+        raise RuntimeError(f"gather_dot launch failed: cudaError {rc}")
+    LAUNCHES["gather_dot"] += 1
     return out
 
 

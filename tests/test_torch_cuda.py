@@ -147,6 +147,139 @@ def test_db_on_card_matches_cpu(dev, monkeypatch, sub):
     assert (np.abs(gv - pv)[diff] <= ATOL).all()
 
 
+# Stage 3 (``ranking.gather_dot``): bf16 operands on the card take
+# ``csrc/gather_dot.cu``. Its shapes: the cells' (b = 1024, k = 128, width 32,
+# d = 768 and 1536) over a smaller plane, the served flush (b = 32), and
+# stress shapes (d = 8 and 4480, width 128 and 256, b = 1, k = 1).
+GATHER_DOT_SHAPES = [
+    (1024, 128, 32, 768, 1 << 18), (1024, 128, 32, 1536, 1 << 18), (32, 128, 32, 768, 1 << 20),
+    (5, 16, 32, 8, 4096), (3, 16, 32, 4480, 8192), (7, 16, 128, 768, 8192),
+    (4, 9, 256, 1536, 8192), (1, 128, 32, 768, 1 << 16), (64, 1, 32, 384, 4096),
+    (1, 1, 128, 4480, 1024),
+]
+
+
+def _gather_dot_operands(dev, b, k, width, d, n, seed):
+    """Unit-scale queries and rows, run ids that hold the plane's last run
+    and, where k > 1, the same run twice in one query's list."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, d), generator=g, device=dev).bfloat16()
+    rows = torch.randn((n, d), generator=g, device=dev).bfloat16()
+    cidx = torch.randint(0, n // width, (b, k), generator=g, device=dev)
+    cidx[:, -1] = n // width - 1
+    if k > 1:
+        cidx[:, 0] = cidx[:, 1]
+    return q, rows, cidx
+
+
+def _magnitudes(q, rows, cidx, width):
+    """sum over t of |q_t * v_t| for every output, in f32 (b, k, width)."""
+    b, k = cidx.shape
+    n, d = rows.shape
+    out = torch.empty((b, k, width), dtype=torch.float32, device=q.device)
+    r3 = rows.view(n // width, width, d)
+    for a in range(0, b, 64):
+        cand = r3[cidx[a : a + 64]].float().abs()
+        c = cand.shape[0]
+        out[a : a + c] = (cand.view(c, -1, d) @ q[a : a + c].float().abs()[:, :, None]).view(c, k, width)
+    return out
+
+
+@pytest.mark.parametrize("b,k,width,d,n", GATHER_DOT_SHAPES)
+def test_gather_dot_kernel_matches_plain(dev, b, k, width, d, n):
+    """Kernel against the plain form (gather, upcast, cuBLAS GEMV). Both sum
+    the same d exact bf16 x bf16 products in f32, in different orders: each
+    rounding is at most 2^-24 of a partial sum, and partial sums of products
+    of random sign stay far below the sum of magnitudes, so the two lie within
+    2^-20 * sum |q_t v_t| of each other (the worst case, d * 2^-24 of it, is
+    for sums of one sign). A run listed twice gives the same bits twice."""
+    q, rows, cidx = _gather_dot_operands(dev, b, k, width, d, n, seed=b + k + width + d)
+    before = R.LAUNCHES["gather_dot"]
+    got = R.gather_dot(q, rows, cidx, width)
+    torch.cuda.synchronize()
+    assert R.LAUNCHES["gather_dot"] == before + 1
+    want = R.gather_dot_plain(q, rows, cidx, width)
+    assert got.shape == want.shape == (b, k, width) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 2.0**-20 * _magnitudes(q, rows, cidx, width)).all()
+    if k > 1:
+        assert torch.equal(got[:, 0], got[:, 1])
+
+
+@pytest.mark.parametrize("b,k,width,d,n", [(5, 16, 32, 8, 4096), (3, 16, 128, 4480, 8192)])
+def test_gather_dot_kernel_within_f32_rounding_of_exact(dev, b, k, width, d, n):
+    """Against the float64 sum of the same values: within gamma_d = d u /
+    (1 - d u), u = 2^-24, of the sum of magnitudes, whatever the order."""
+    q, rows, cidx = _gather_dot_operands(dev, b, k, width, d, n, seed=7)
+    got = R.gather_dot(q, rows, cidx, width).double()
+    r3 = rows.view(n // width, width, d)[cidx].double()  # (b, k, width, d)
+    q64 = q.double()[:, None, None, :]
+    want = (r3 * q64).sum(-1)
+    mag = (r3 * q64).abs().sum(-1)
+    gamma = d * 2.0**-24 / (1 - d * 2.0**-24)
+    assert ((got - want).abs() <= gamma * mag).all()
+
+
+def test_gather_dot_kernel_is_deterministic(dev):
+    q, rows, cidx = _gather_dot_operands(dev, 1024, 128, 32, 768, 1 << 18, seed=1)
+    first = R.gather_dot(q, rows, cidx, 32)
+    second = R.gather_dot(q, rows, cidx, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_rescore_turns_a_nan_row_into_neg_inf(dev):
+    """The kernel returns a NaN row's raw product; ``gmax._rescore`` scrubs it
+    to -inf and adds ``extra``, as on the plain form."""
+    q, rows, cidx = _gather_dot_operands(dev, 16, 8, 32, 384, 4096, seed=2)
+    rows[cidx[3, 2] * 32 + 5] = float("nan")
+    extra = torch.zeros(4096, device=dev)
+    got = G._rescore(q, rows, extra, cidx, 32)
+    raw = R.gather_dot(q, rows, cidx, 32)
+    torch.cuda.synchronize()
+    assert torch.isnan(raw[3, 2, 5])
+    nan = torch.isnan(raw)
+    assert torch.equal(torch.isneginf(got), nan) and not torch.isnan(got).any()
+    assert torch.equal(got[~nan], raw[~nan])
+
+
+def test_gather_dot_kernel_refuses_what_it_does_not_take(dev):
+    q, rows, cidx = _gather_dot_operands(dev, 8, 4, 32, 64, 1024, seed=3)
+    wide = torch.zeros((8, 128), dtype=torch.bfloat16, device=dev)[:, :64]  # not contiguous
+    before = R.LAUNCHES["gather_dot"]
+    with pytest.raises(ValueError, match="contiguous"):
+        R.gather_dot(wide, rows, cidx, 32)  # bf16 on the card: the kernel's route
+    with pytest.raises(ValueError, match="contiguous"):
+        R.gather_dot_kernel(q, rows.t().contiguous().t(), cidx, 32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        R.gather_dot_kernel(q.half(), rows.half(), cidx, 32)
+    with pytest.raises(ValueError, match="int64"):
+        R.gather_dot_kernel(q, rows, cidx.int(), 32)
+    with pytest.raises(ValueError, match="shapes"):
+        R.gather_dot_kernel(q, rows, cidx, 48)  # 1024 rows are no whole number of runs
+    assert R.LAUNCHES["gather_dot"] == before
+    # f16 and f32 rows on the card take the plain form
+    assert R.gather_dot(q.half(), rows.half(), cidx, 32).shape == (8, 4, 32)
+    assert R.gather_dot(q.float(), rows.float(), cidx, 32).shape == (8, 4, 32)
+    assert R.LAUNCHES["gather_dot"] == before
+
+
+def test_gather_dot_launches_on_every_grouped_route(dev, monkeypatch):
+    """The dot route, the metric kernel route and the plain grouped metric
+    route (recency keeps it plain) each launch the kernel once a plane."""
+    q, v, _ = _inputs(dev, 512, 8192, 384, seed=5)
+    v = torch.nan_to_num(v)
+    sq = (v.float() ** 2).sum(-1)
+    rec = torch.zeros(8192, device=dev)
+    before = R.LAUNCHES["gather_dot"]
+    G.rank_top_k_grouped_gmax(q, v, 16)
+    assert R.LAUNCHES["gather_dot"] == before + 1
+    G.rank_top_k_grouped_metric_gmax(q.float(), v, sq, 16, "euclidean_metric")
+    assert R.LAUNCHES["gather_dot"] == before + 2
+    R.rank_top_k_grouped_metric(q.float(), v, sq, 16, "euclidean_metric", recency=rec)
+    assert R.LAUNCHES["gather_dot"] == before + 3
+
+
 def test_vectors_setter_then_query_on_card_matches_cpu(dev, monkeypatch):
     """``db.vectors = ...`` on a card DB that has served a batch: the next
     batch scans the new rows through ``gmax_f_sub`` and returns exactly

@@ -242,7 +242,7 @@ def test_build_flags_and_sources():
     # rows over clusters sharing the corpus by multicast), and of gmax.cu
     # (mma.sync fed by cp.async, the yardstick); l1.cu holds the two
     # manhattan kernels
-    assert cuda_build.sources() == ["gmax", "gmax_wgmma", "l1"]
+    assert cuda_build.sources() == ["gather_dot", "gmax", "gmax_wgmma", "l1"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     # no fast-math: the jaccard division and the NaN scrub must be IEEE
     assert not any("fast" in flag for flag in cuda_build.NVCC_FLAGS)
