@@ -39,7 +39,7 @@ of the (N, d) corpus; at b = 512 and N = 2^20, d = 384 that is 0.41 TFLOP
 against 0.8 GB, about 500 operations per byte, above the card's ~295 in
 bf16 (int8 at b = 1024: 2000 per byte against ~590). What a kernel then has
 to do is keep the tensor cores fed, and the (B, N) score matrix out of
-device memory. Three kernels, all hand-written for ``sm_90a``:
+device memory. Two variants, both hand-written for ``sm_90a``:
 
 - ``wgmma`` (``csrc/gmax_wgmma.cu``, ``gmax_wgmma_kernel``) runs the
   product as ``wgmma.mma_async`` from shared memory: a block keeps its 128
@@ -52,9 +52,6 @@ device memory. Three kernels, all hand-written for ``sm_90a``:
   plane): query and corpus boxes both stream through the ring, clusters of
   two blocks share each 256-row corpus box by TMA multicast, and the
   accumulators stay in registers over the whole depth.
-- ``mma`` (``csrc/gmax.cu``: ``mma.sync`` fed by ``cp.async``) is the
-  first port's kernel, kept only as the yardstick the other two are timed
-  against (``_launch(..., _variant="mma")``); no route reaches it.
 
 :func:`kernel_variant` is the rule: a row of at most 1536 bytes (12 boxes
 of 128 bytes: d <= 768 in bf16, d <= 1536 in int8) leaves room for the
@@ -87,7 +84,7 @@ from hyperdb_tpu_torch.utils import trace as _trace
 GROUP = 128  # rows per group; the kernel's corpus block
 
 LAUNCHES = {"gmax_f_sub": 0, "gmax_f": 0, "gmax_int8": 0, "gmax_jaccard": 0}
-LAUNCHES_BY_VARIANT = {"wgmma": 0, "wgmma_stream": 0, "mma": 0}
+LAUNCHES_BY_VARIANT = {"wgmma": 0, "wgmma_stream": 0}
 
 # the wgmma variant keeps a 128-query tile resident at full depth beside a
 # ring of corpus tiles: at most 12 boxes of 128 bytes of depth fit
@@ -102,7 +99,6 @@ _KIND_F, _KIND_INT8, _KIND_JACCARD = 0, 1, 2
 _VARIANTS = {
     "wgmma": ("gmax_wgmma", "gmax_scan_wgmma"),
     "wgmma_stream": ("gmax_wgmma", "gmax_scan_wgmma_stream"),
-    "mma": ("gmax", "gmax_scan"),
 }
 
 
@@ -153,9 +149,10 @@ def _check(kind, queries, vectors, qaux, vaux, extra, sub):
 
 
 def _launch(kind, queries, vectors, extra, sm, gm, sub, qaux=None, vaux=None, _variant=None):
-    """One stage-1 scan into ``sm`` / ``gm``. ``_variant`` forces a variant
-    (timing one against the other on the card); its C entry point refuses a
-    shape it does not take, which raises here."""
+    """One stage-1 scan into ``sm`` / ``gm``. ``_variant`` forces
+    ``"wgmma"`` or ``"wgmma_stream"`` (timing one against the other on the
+    card); its C entry point refuses a shape it does not take, which raises
+    here. Any other name raises before a library is loaded."""
     b, d = queries.shape
     variant = _variant or kernel_variant(vectors.shape[0], d, queries.element_size())
     fn = _scan_fn(variant)  # builds on first use; raises if the library cannot be built

@@ -6,8 +6,8 @@ Builds ``hyperdb_tpu_torch/csrc/gmax_wgmma.cu`` as it stands and as a few
 one-line edits that each take one thing away, plus any other source given
 on the command line (a file with the same ``gmax_scan_wgmma`` entry point),
 and times them all at the main path's shapes (2^20 x 384; bf16 at b = 512
-and 16384 writing 32-row subgroup maxes, int8 at b = 1024 and 4096),
-beside the ``mma.sync`` variant of the package. The edits:
+and 16384 writing 32-row subgroup maxes, int8 at b = 1024 and 4096).
+The edits:
 
 - ``branchy``: the four k-steps of a box under a runtime count, as a ragged
   last box would have them. ptxas then fences between the wgmma
@@ -161,10 +161,6 @@ def main() -> int:
                 note = f" equal to current: {torch.equal(out, first)}"
             print(f"kind={kind} b={b} {name}: {ms:.3f} ms {2.0 * b * N * D / ms / 1e9:.0f} T/s{note} "
                   f"[{card}]", flush=True)
-        ms = cuda_ms(lambda: G._launch(kind, q, vv, extra, sm, gm, sub, qaux=qa, vaux=va,
-                                       _variant="mma"), reps)
-        print(f"kind={kind} b={b} mma.sync variant: {ms:.3f} ms {2.0 * b * N * D / ms / 1e9:.0f} T/s "
-              f"[{card}]", flush=True)
         del sm, gm, out, first
 
     a = torch.randn((8192, 8192), device=dev, generator=gen).bfloat16()

@@ -9,12 +9,11 @@ moves scores of magnitude <= 1 by a few f32 ulps (~1e-7 each); -inf positions mu
 products are exact integers and their epilogues are the same sequence of
 IEEE f32 operations, with no multiply-add contracted.
 The stage-1 scans exist in two variants (``wgmma`` with a resident query
-tile, ``wgmma_stream`` for deeper rows), chosen by ``gmax.kernel_variant``,
-beside the first port's ``mma.sync`` kernel, which no route reaches: the
-shapes below stress both (ragged query tiles, depths that end inside a
+tile, ``wgmma_stream`` for deeper rows), chosen by ``gmax.kernel_variant``:
+the shapes below stress both (ragged query tiles, depths that end inside a
 128-byte box, the deepest resident query tile and one past it, queries
 fewer than a cluster's two tiles, group counts that a 256-row item does not
-divide) and hold each variant to the plain versions and to ``mma.sync``.
+divide) and hold each variant to the plain versions.
 ``gmax_l1`` and ``gmax_l1t`` sum d terms |v - q| in f32 in another order
 than torch's ``sum(-1)``: rtol 1e-5 plus atol 1e-4 on distances of
 magnitude ~d; -inf / +inf positions must match exactly.
@@ -647,20 +646,10 @@ def _stress_inputs(dev, b, n, d, seed=0):
     return torch.from_numpy(q).to(dev).bfloat16(), torch.from_numpy(v).to(dev).bfloat16(), extra
 
 
-def _launch_variant(variant, kind, q, v, extra, sub=0, group=True, qaux=None, vaux=None):
-    """One scan through ``variant`` whatever the shape rule says."""
-    b, n = q.shape[0], v.shape[0]
-    sm = torch.empty((b, n // sub), dtype=torch.float32, device=q.device) if sub else None
-    gm = torch.empty((b, n // 128), dtype=torch.float32, device=q.device) if group else None
-    G._launch(kind, q, v, extra, sm, gm, sub, qaux=qaux, vaux=vaux, _variant=variant)
-    torch.cuda.synchronize()
-    return gm, sm
-
-
 @pytest.mark.parametrize("b,n,d", STRESS)
 def test_float_scans_over_stress_shapes(dev, b, n, d):
     """``gmax_f_sub`` (single and dual) and ``gmax_f`` through the variant the
-    rule picks, against the plain versions and against the other variant."""
+    rule picks, against the plain versions."""
     q, v, extra = _stress_inputs(dev, b, n, d, seed=b + d)
     variant = G.kernel_variant(n, d, 2)
     assert variant == ("wgmma" if d <= 768 else "wgmma_stream")
@@ -679,10 +668,6 @@ def test_float_scans_over_stress_shapes(dev, b, n, d):
     assert torch.isneginf(gm[:, 1]).all()  # the masked group
     if n > 256:
         assert torch.isneginf(gm[:, -1]).all()  # the NaN group
-    # the mma.sync variant takes every depth: hold the two against each other
-    old_gm, old_sm = _launch_variant("mma", G._KIND_F, q, v, extra, sub=32)
-    _same(sm, old_sm)
-    _same(gm, old_gm)
 
 
 @pytest.mark.parametrize("sub", [8, 16, 32, 64])
@@ -714,18 +699,17 @@ def test_wgmma_many_items_with_odd_tile_counts(dev):
     want_gm, want_sm = G.gmax_f_sub_plain(q, v, extra, sub=32)
     _same(sm, want_sm)
     _same(gm, want_gm)
-    old_gm, old_sm = _launch_variant("mma", G._KIND_F, q, v, extra, sub=32)
-    _same(sm, old_sm)
-    _same(gm, old_gm)
 
 
 def test_wgmma_refuses_a_depth_past_its_rule(dev):
     """Forced onto a shape it does not take, the wgmma entry point refuses;
     nothing else steps in."""
     q, v, extra = _stress_inputs(dev, 64, 256, 1024)
+    sm = torch.empty((64, 256 // 32), dtype=torch.float32, device=dev)
+    gm = torch.empty((64, 256 // 128), dtype=torch.float32, device=dev)
     before = dict(G.LAUNCHES_BY_VARIANT)
     with pytest.raises(RuntimeError, match="gmax_scan_wgmma launch failed"):
-        _launch_variant("wgmma", G._KIND_F, q, v, extra, sub=32)
+        G._launch(G._KIND_F, q, v, extra, sm, gm, 32, _variant="wgmma")
     assert G.LAUNCHES_BY_VARIANT == before
 
 
@@ -759,8 +743,6 @@ def test_int8_scan_over_stress_shapes(dev, b, n, d):
     assert G.LAUNCHES_BY_VARIANT[variant] == before + 1
     assert torch.equal(got, G.gmax_int8_plain(q_i8, q_scale, v_t, sc_t, extra))
     assert torch.isneginf(got[:, 1]).all()
-    old, _ = _launch_variant("mma", G._KIND_INT8, q_i8, v_t, extra, qaux=q_scale, vaux=sc_t)
-    assert torch.equal(got, old)
 
 
 @pytest.mark.parametrize(
@@ -788,10 +770,6 @@ def test_jaccard_scan_over_stress_shapes(dev, b, n, d):
     assert G.LAUNCHES_BY_VARIANT[variant] == before + 1
     assert torch.equal(got, G.gmax_jaccard_plain(qq, vv, q_sum, aux, extra))
     assert torch.isneginf(got[0, -1]) and torch.isneginf(got[:, 1]).all()
-    old, _ = _launch_variant(
-        "mma", G._KIND_JACCARD, qq, vv, extra, qaux=q_sum.reshape(b).contiguous(), vaux=aux
-    )
-    assert torch.equal(got, old)
 
 
 @pytest.mark.parametrize("dens_q, dens_v", [(0.5, 0.5), (0.05, 0.9), (0.9, 0.05), (0.01, 0.01), (0.99, 0.99)])

@@ -205,7 +205,7 @@ def test_grouped_gmax_refuses_out_of_contract(qdt, vdt, n, k):
 def test_kernel_variant_rule(n, d, itemsize, want):
     """The one rule on shapes: a row of at most 12 boxes of 128 bytes goes to
     the resident-query wgmma variant, a deeper one to the streaming variant;
-    the batch does not matter and no shape goes to mma.sync."""
+    the batch does not matter."""
     assert G.kernel_variant(n, d, itemsize) == want
     assert (d * itemsize <= G.WGMMA_MAX_ROW_BYTES) == (want == "wgmma")
 
@@ -232,13 +232,30 @@ def test_variant_counter_and_entry_points():
     from hyperdb_tpu_torch.ops import cuda_build
 
     assert set(G.LAUNCHES) == {"gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard"}
-    assert set(G.LAUNCHES_BY_VARIANT) == set(G._VARIANTS) == {"wgmma", "wgmma_stream", "mma"}
+    assert set(G.LAUNCHES_BY_VARIANT) == set(G._VARIANTS) == {"wgmma", "wgmma_stream"}
     for source, entry in G._VARIANTS.values():
         assert source in cuda_build.sources()
         assert f'extern "C" int {entry}(' in (cuda_build.CSRC / f"{source}.cu").read_text()
     before = dict(G.LAUNCHES), dict(G.LAUNCHES_BY_VARIANT)
     G.gmax_f_sub(torch.ones(8, 16).bfloat16(), torch.ones(256, 16).bfloat16(), torch.zeros(256))
     assert (G.LAUNCHES, G.LAUNCHES_BY_VARIANT) == before
+
+
+def test_unknown_variant_raises_before_any_load(monkeypatch):
+    """A forced variant outside the two raises before any library is built
+    or loaded and before either counter moves: the retired ``mma.sync``
+    kernel's name reaches nothing."""
+    from hyperdb_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "load", lambda name: pytest.fail(f"loaded {name}"))
+    q = torch.empty((128, 384), dtype=torch.bfloat16, device="meta")
+    v = torch.empty((1024, 384), dtype=torch.bfloat16, device="meta")
+    extra = torch.empty((1024,), dtype=torch.float32, device="meta")
+    gm = torch.empty((128, 8), dtype=torch.float32, device="meta")
+    before = dict(G.LAUNCHES), dict(G.LAUNCHES_BY_VARIANT)
+    with pytest.raises(KeyError):
+        G._launch(G._KIND_F, q, v, extra, None, gm, 0, _variant="mma")
+    assert (dict(G.LAUNCHES), dict(G.LAUNCHES_BY_VARIANT)) == before
 
 
 # Deep rows (the streaming variant's shapes): the JAX kernels in interpret

@@ -228,28 +228,24 @@ def test_routes_raise_without_kernel(no_kernel_library, monkeypatch):
 
 
 def test_missing_library_file_raises(no_kernel_library, monkeypatch, tmp_path):
-    missing = tmp_path / "libgmax-missing.so"
-    monkeypatch.setattr(cuda_build, "build", lambda names=None: {"gmax": missing})
+    missing = tmp_path / "libgmax_wgmma-missing.so"
+    monkeypatch.setattr(cuda_build, "build", lambda names=None: {"gmax_wgmma": missing})
     with pytest.raises(OSError):
-        cuda_build.load("gmax")
-    assert "gmax" not in cuda_build._LIBS
+        cuda_build.load("gmax_wgmma")
+    assert "gmax_wgmma" not in cuda_build._LIBS
 
 
 def test_build_flags_and_sources():
     # the four stage-1 scans (gmax_f_sub, gmax_f, gmax_int8, gmax_jaccard) are
     # instantiations of one template in each of the two variants of
     # gmax_wgmma.cu (wgmma fed by TMA: a resident query tile, and streamed
-    # rows over clusters sharing the corpus by multicast), and of gmax.cu
-    # (mma.sync fed by cp.async, the yardstick); l1.cu holds the two
-    # manhattan kernels
-    assert cuda_build.sources() == ["gather_dot", "gmax", "gmax_wgmma", "l1"]
+    # rows over clusters sharing the corpus by multicast); l1.cu holds the
+    # two manhattan kernels, gather_dot.cu stage 3's rescore
+    assert cuda_build.sources() == ["gather_dot", "gmax_wgmma", "l1"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     # no fast-math: the jaccard division and the NaN scrub must be IEEE
     assert not any("fast" in flag for flag in cuda_build.NVCC_FLAGS)
-    src = (cuda_build.CSRC / "gmax.cu").read_text()
-    for needle in ("m16n8k32.row.col.s32.s8.s8.s32", "__fmul_rn", "__fdiv_rn", "KIND_JACCARD"):
-        assert needle in src
-    new = (cuda_build.CSRC / "gmax_wgmma.cu").read_text()
+    src = (cuda_build.CSRC / "gmax_wgmma.cu").read_text()
     for needle in (
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
         "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
@@ -257,24 +253,29 @@ def test_build_flags_and_sources():
         "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8", "multicast::cluster",
         'extern "C" int gmax_scan_wgmma_stream(',
         "cp.async.bulk.tensor", "mbarrier", "setmaxnreg", "const __grid_constant__ CUtensorMap",
-        "cuTensorMapEncodeTiled", "__fmul_rn", "KIND_JACCARD",
+        "cuTensorMapEncodeTiled", "__fmul_rn", "__fdiv_rn", "KIND_JACCARD",
         "hyperdb_tpu/ops/pallas_gmax.py", "Bound on the H100: operations",
     ):
-        assert needle in new, needle
-    for text in (src, new):
-        for banned in ("#include <torch", "ATen", "cublas", "cutlass/gemm/device", "later work"):
-            assert banned not in text, banned
-    p = cuda_build.library_path("gmax")
-    assert p.parent == cuda_build.BUILD_DIR and p.name.startswith("libgmax-")
-    assert cuda_build.library_path("gmax_wgmma").name.startswith("libgmax_wgmma-")
+        assert needle in src, needle
+    for banned in ("#include <torch", "ATen", "cublas", "cutlass/gemm/device", "later work"):
+        assert banned not in src, banned
+    p = cuda_build.library_path("gmax_wgmma")
+    assert p.parent == cuda_build.BUILD_DIR and p.name.startswith("libgmax_wgmma-")
 
 
-@pytest.mark.parametrize("variant", ["wgmma", "wgmma_stream", "mma"])
+def test_every_kernel_source_is_reached():
+    """Every ``csrc/*.cu`` is loaded by a wrapper: the stage-1 variants'
+    source, stage 3's ``gather_dot`` and the two L1 kernels' ``l1``. A source
+    that no wrapper loads would be built and shipped for nothing."""
+    loaded = {source for source, _ in G._VARIANTS.values()} | {"gather_dot", "l1"}
+    assert set(cuda_build.sources()) == loaded
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "wgmma_stream"])
 def test_either_variant_raises_without_kernel(no_kernel_library, monkeypatch, variant):
-    """Every variant reaches the loader and raises when its library cannot
-    be built: ``wgmma`` and ``wgmma_stream`` by the shape rule and when
-    forced, ``mma`` (the yardstick, which no shape reaches) when forced;
-    none gives way to another or to a plain version."""
+    """Either variant reaches the loader and raises when its library cannot
+    be built, by the shape rule and when forced; neither gives way to the
+    other or to a plain version."""
     for name in ("gmax_f_plain", "gmax_f_sub_plain", "gmax_int8_plain", "gmax_jaccard_plain"):
         monkeypatch.setattr(G, name, lambda *a, **kw: pytest.fail("plain version"))
     d = 128 if variant == "wgmma" else 1024  # 256- and 2048-byte rows
@@ -298,9 +299,8 @@ def test_either_variant_raises_without_kernel(no_kernel_library, monkeypatch, va
     with pytest.raises(RuntimeError, match="nvcc not found"):
         G.gmax_int8(q8, torch.empty((128,), device="meta"), v8, extra, extra)
     assert loaded == [G._VARIANTS[routed][0]] * 4
-    assert G._VARIANTS["mma"][0] not in loaded  # no shape reaches the yardstick
-    # forced: another variant's loader is reached whatever the rule says
-    other = {"wgmma": "wgmma_stream", "wgmma_stream": "wgmma", "mma": "mma"}[variant]
+    # forced: the other variant's loader is reached whatever the rule says
+    other = {"wgmma": "wgmma_stream", "wgmma_stream": "wgmma"}[variant]
     sm = torch.empty((128, 32), dtype=torch.float32, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         G._launch(G._KIND_F, q, v, extra, sm, None, 32, _variant=other)
