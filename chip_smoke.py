@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (``hyperdb_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--before earlier/gmax_wgmma.cu]
 
 Phases, one or a few lines each on standard output:
 
@@ -283,7 +283,25 @@ Phases, one or a few lines each on standard output:
    memory rate), the plain form and its batched product alone
    (``library_ms``); the bytes of the distinct runs beside the pairs'.
 
-Then a JSON line describing every kernel (path K's as "<name> d=4480"), and as the last line
+21. path O, stage 1 at the 768-d benchmark cells' planes (after path N): a
+   HyperDB over 2^23 + 2^21 seeded 768-d float16 rows, which the planar
+   route splits into the Cohere cells' two plane sizes; ``query_batch_arrays``
+   at b = 1024 and b = 32, counters set to 0 just before: one ``gmax_f_sub``
+   launch a plane, every one on ``wgmma`` (the pair form of its resident
+   kernel: rows of 12 boxes), ids tie-aware equal to the exact reference.
+   Then ``gmax_f_sub`` on each of the DB's planes at each batch, 32-row
+   subgroup maxes, held to the plain version within 1e-5 and timed beside
+   its bound and the plain version.
+
+``--before`` names an earlier tree's ``gmax_wgmma.cu``: it is built, and
+this tree's resident kernel and that one are timed in turn on the same
+buffers (five rounds) at the shapes of the ``gmax_f_sub``, ``gmax_f`` and
+``gmax_int8`` entries (rows of 3-6 boxes: the 128-query form), at b = 16384
+(bf16) and 4096 (int8), and at path O's shapes (the pair form), as
+``ms_paired`` and ``ms_before``.
+
+Then a JSON line describing every kernel (path K's as "<name> d=4480", path
+O's as "gmax_f_sub d=768 rows=<n> b=<b>"), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no last line. It needs one CUDA device and refuses to run
 without one.
@@ -304,6 +322,8 @@ import time
 import numpy as np
 import torch
 
+from hyperdb_tpu_torch.tools.scan_bound import PEAK_BF16_FLOPS, PEAK_BYTES, scan_bound_ms
+
 N_DOCS = 1_000_000
 DIM = 384
 TOP_K = 10
@@ -321,9 +341,6 @@ METRIC_ATOL = {
 }
 INT8_ATOL = 1e-7
 RECENCY_BIAS = 0.05
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # H100 SXM FP32 outside the tensor cores: 67 TFLOP/s counts a fused
 # multiply-add as two, so the CUDA cores run half that many lane-operations
 PEAK_FP32_OPS = 67e12 / 2
@@ -456,22 +473,6 @@ def wall_ms(fn, reps: int) -> float:
         fn()
         times.append((time.perf_counter() - t) * 1e3)
     return statistics.median(times)
-
-
-def scan_bound_ms(b: int, n: int, d: int, out_cols: int, kind: str = "bf16"):
-    """Least time for one stage-1 scan: the larger of its operations over
-    the tensor-core peak of its operand type and its bytes (every input read
-    once, the maxes written once) over the memory rate. ``kind`` is "bf16"
-    (q, v, extra), "int8" (one-byte q and v, plus q_scale, v_scales, extra)
-    or "jaccard" (bf16 q and v, plus q_sum, aux, extra)."""
-    flops = 2.0 * b * n * d
-    width = 1.0 if kind == "int8" else 2.0
-    nbytes = width * (b * d + n * d) + 4.0 * n + 4.0 * b * out_cols
-    if kind != "bf16":
-        nbytes += 4.0 * (b + n)
-    peak = PEAK_INT8_OPS if kind == "int8" else PEAK_BF16_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def l1_bound_ms(b: int, n: int, d: int, corpus_bytes: int = 2):
@@ -848,6 +849,8 @@ def phase_kernels(plane: torch.Tensor, n: int, seed: int, card: str):
             lambda: library(G.GROUP), scan_bound_ms(b, n_pad, DIM, n_pad // G.GROUP),
         ),
     }
+    hold_to_earlier(results["gmax_f_sub"], card, G._KIND_F, q, v, extra, sm=sm, sub=SUB)
+    hold_to_earlier(results["gmax_f"], card, G._KIND_F, q, v, extra, gm=gm_f)
     dual_ms = cuda_ms(lambda: G.gmax_f_sub(q, v, extra, sub=SUB, dual=True), reps=20)
     log(f"kernel gmax_f_sub dual: max_abs_err={err_dual:.3g} ms={dual_ms:.4f}")
 
@@ -857,6 +860,11 @@ def phase_kernels(plane: torch.Tensor, n: int, seed: int, card: str):
     bound, bound_by = scan_bound_ms(qb.shape[0], n_pad, DIM, n_pad // SUB)
     log(f"kernel gmax_f_sub: b={qb.shape[0]} ms={ms_big:.4f} bound_ms={bound:.4f} ({bound_by}) "
         f"bound/ms={bound / ms_big:.3f} [{card}]")
+    if EARLIER:
+        sm_big = torch.empty((qb.shape[0], n_pad // SUB), device=qb.device)
+        hold_to_earlier({"name": f"gmax_f_sub b={qb.shape[0]}", "bound_ms": bound}, card,
+                        G._KIND_F, qb, v, extra, sm=sm_big, sub=SUB)
+        del sm_big
     dual_big = cuda_ms(lambda: G.gmax_f_sub(qb, v, extra, sub=SUB, dual=True), reps=5)
     log(f"kernel gmax_f_sub dual: b={qb.shape[0]} ms={dual_big:.4f} (the single form adds a "
         f"torch amax over the subgroup maxes for its group maxes)")
@@ -975,12 +983,18 @@ def phase_kernel_int8(v_i8: torch.Tensor, v_scales: torch.Tensor, seed: int, car
         lambda: G.gmax_int8_plain(q_i8, q_scale, v, vs, extra),
         lib, scan_bound_ms(b, n_pad, DIM, n_pad // G.GROUP, "int8"),
     )
+    hold_to_earlier(entry, card, G._KIND_INT8, q_i8, v, extra, gm=got, qaux=q_scale, vaux=vs)
     q4 = q_i8.repeat(4, 1)
     qs4 = q_scale.repeat(4)
     ms_big = cuda_ms(lambda: G.gmax_int8(q4, qs4, v, vs, extra), reps=5)
     bound, bound_by = scan_bound_ms(q4.shape[0], n_pad, DIM, n_pad // G.GROUP, "int8")
     log(f"kernel gmax_int8: b={q4.shape[0]} ms={ms_big:.4f} bound_ms={bound:.4f} ({bound_by}) "
         f"bound/ms={bound / ms_big:.3f} [{card}]")
+    if EARLIER:
+        gm4 = torch.empty((q4.shape[0], n_pad // G.GROUP), device=q4.device)
+        hold_to_earlier({"name": f"gmax_int8 b={q4.shape[0]}", "bound_ms": bound}, card,
+                        G._KIND_INT8, q4, v, extra, gm=gm4, qaux=qs4, vaux=vs)
+        del gm4
     del v, vs, q4
     torch.cuda.empty_cache()
     return entry
@@ -3604,7 +3618,8 @@ class PlaneReference:
         self.vals, self.ids = vals, ids
 
     def rows(self, ids: torch.Tensor) -> torch.Tensor:
-        out = torch.empty((*ids.shape, DIM), dtype=torch.float32, device=ids.device)
+        width = self.planes[0].shape[1]
+        out = torch.empty((*ids.shape, width), dtype=torch.float32, device=ids.device)
         for plane, off in zip(self.planes, self.offsets):
             sel = (ids >= off) & (ids < off + plane.shape[0])
             out[sel] = plane[ids[sel] - off].float()
@@ -4684,9 +4699,148 @@ def path_stage3(seed: int, card: str) -> dict:
     return entry
 
 
+# path O: stage 1 at the 768-d benchmark cells' planes
+O_PLANES = (8_388_608, 2_097_152)  # the Cohere cells' two plane sizes
+O_BATCHES = (1024, 32)  # the batch cell's batch and a served flush
+O_DIM = 768
+EARLIER = {}  # "scan": an earlier tree's gmax_scan_wgmma (--before), set in main
+
+
+def before_scan(path: str):
+    """The ``gmax_scan_wgmma`` entry point of an earlier tree's
+    ``gmax_wgmma.cu`` at ``path``, built beside this tree's libraries."""
+    from hyperdb_tpu_torch.ops import cuda_build
+    from hyperdb_tpu_torch.tools import gmax_variants
+
+    libs = gmax_variants.build({"before": open(path).read()}, cuda_build.BUILD_DIR / "before")
+    return gmax_variants.entry(libs["before"])
+
+
+def hold_to_earlier(entry, card, kind, q, v, extra, sm=None, gm=None, sub=0, qaux=None,
+                    vaux=None) -> None:
+    """With ``--before``: this tree's ``wgmma`` scan and the earlier tree's
+    at the shape of ``entry``, on the same buffers, in five rounds that take
+    the two in turn (``gmax_variants.rounds_ms``); their medians go on
+    ``entry`` as ``ms_paired`` and ``ms_before``. Without it, nothing."""
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.tools import gmax_variants
+
+    if "scan" not in EARLIER:
+        return
+    b, d = q.shape
+    n = v.shape[0]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def earlier():
+        rc = EARLIER["scan"](kind, ptr(q), ptr(v), ptr(qaux), ptr(vaux), ptr(extra), ptr(sm),
+                             ptr(gm), b, n, d, sub, stream)
+        if rc:
+            raise RuntimeError(f"the earlier kernel's launch failed: cudaError {rc}")
+
+    def now():
+        G._launch(kind, q, v, extra, sm, gm, sub, qaux=qaux, vaux=vaux, _variant="wgmma")
+
+    reps = 5 if 2.0 * b * n * d > 1e13 else 10
+    times = gmax_variants.rounds_ms({"now": now, "earlier": earlier}, reps)
+    entry["ms_paired"] = statistics.median(times["now"])
+    entry["ms_before"] = statistics.median(times["earlier"])
+    log(f"kernel {entry['name']}: ms_paired={entry['ms_paired']:.4f} "
+        f"ms_before={entry['ms_before']:.4f} (the earlier tree's kernel, rounds "
+        f"{min(times['earlier']):.4f}-{max(times['earlier']):.4f} against "
+        f"{min(times['now']):.4f}-{max(times['now']):.4f}) "
+        f"bound/ms_before={entry['bound_ms'] / entry['ms_before']:.3f} [{card}]")
+
+
+def path_resident_768(kernels, seed: int, card: str) -> list:
+    """Path O: a HyperDB over 2^23 + 2^21 seeded 768-d float16 rows (row 4
+    copied to row 17), which the planar route splits into the Cohere cells'
+    two plane sizes. ``query_batch_arrays`` at b = 1024 and 32, counters set
+    to 0 just before: one ``gmax_f_sub`` launch a plane, every one on
+    ``wgmma`` (the pair form of its resident kernel: rows of 12 boxes), the
+    first 32 queries' ids tie-aware equal to the exact reference. Then
+    ``gmax_f_sub`` on each of the DB's planes at each batch, 32-row subgroup
+    maxes as the cells ask, held to the plain version within ``ATOL`` and
+    timed beside its bound and the plain version (and the earlier tree's
+    kernel, ``--before``). Returns the names of its ``kernels`` entries."""
+    from hyperdb_tpu_torch import HyperDB
+    from hyperdb_tpu_torch.ops import gmax as G
+    from hyperdb_tpu_torch.ops import l1 as L
+
+    dev = card_device()
+    free_device("path O start")
+    t = time.perf_counter()
+    n = sum(O_PLANES)
+    corpus = make_deep_corpus(seed + 200, n, O_DIM)
+    db = HyperDB(documents=[{}] * n, vectors=corpus, fp_precision="float16")
+    dv = db._store.device_view(db.source_indices)
+    bounds = db._store.plane_bounds(dv["n_pad"])
+    if tuple(b - a for a, b in zip(bounds, bounds[1:])) != O_PLANES:
+        raise AssertionError(f"path O: expected planes of {O_PLANES} rows, got {bounds}")
+    planes = dv["rows_norm_planes"]
+    valid = [dv["row_valid"][a:b] for a, b in zip(bounds, bounds[1:])]
+    torch.cuda.synchronize()
+    log(f"path O db: {n} x {O_DIM} float16, planes at {bounds}, {time.perf_counter() - t:.1f} s")
+
+    queries, through = {}, {}
+    for b in O_BATCHES:
+        q = deep_queries(seed + 201 + b, b, corpus)
+        ids, vals, _ = counted_call(db, q, f"path O cosine b={b}", "cosine_similarity", G, L,
+                                    {"gmax_f_sub": len(O_PLANES)})
+        through[b] = G.LAUNCHES_BY_VARIANT["wgmma"]
+        if list(ids[0, :2]) != [4, 17]:
+            raise AssertionError(f"path O b={b}: the planted copies 4/17 are not first: {ids[0, :2]}")
+        ref = capacity_reference("cosine_similarity", q[:32], planes, n)
+        swaps, err = check_top_k(f"path O cosine b={b}", ids[:32], vals[:32], ref, ATOL)
+        log(f"path O cosine b={b}: {through[b]} launches on wgmma, one a plane; first 32 "
+            f"queries' ids tie-aware equal to the exact reference ({swaps} tied swaps, score "
+            f"err {err:.3g})")
+        del ref
+        qt = torch.from_numpy(q).to(dev)
+        queries[b] = (qt / qt.norm(dim=1, keepdim=True)).bfloat16()
+    del db, dv, corpus
+    free_device("path O after the DB")
+
+    names = []
+    for plane, live in zip(planes, valid):
+        rows = plane.shape[0]
+        g = torch.Generator(device=dev).manual_seed(seed + rows)
+        extra = G.make_extra(rows, live & (torch.rand(rows, generator=g, device=dev) < 0.9),
+                             device=dev)
+        for b in O_BATCHES:
+            q = queries[b]
+            gm, sm = G.gmax_f_sub(q, plane, extra, sub=SUB, dual=False)
+            torch.cuda.synchronize()
+            want_gm, want_sm = G.gmax_f_sub_plain(q, plane, extra, sub=SUB)
+            err = max(max_err(sm, want_sm), max_err(gm, want_gm))
+            if err > ATOL:
+                raise AssertionError(f"path O rows={rows} b={b}: max abs err {err:.3g} > {ATOL}")
+            del gm, want_gm, want_sm
+            name = f"gmax_f_sub d={O_DIM} rows={rows} b={b}"
+            entry = kernel_entry(
+                name, "hyperdb_tpu/ops/pallas_gmax.py:265", err,
+                lambda: G.gmax_f_sub(q, plane, extra, sub=SUB, dual=False),
+                lambda: G.gmax_f_sub_plain(q, plane, extra, sub=SUB),
+                None, scan_bound_ms(b, rows, O_DIM, rows // SUB), reps=10, slow=True,
+            )
+            # the launches of this (plane, batch) through HyperDB above
+            entry["launches"] = through[b] // len(O_PLANES)
+            hold_to_earlier(entry, card, G._KIND_F, q, plane, extra, sm=sm, sub=SUB)
+            kernels[name] = entry
+            names.append(name)
+            del sm
+        del extra
+    del planes, valid, queries
+    free_device("path O end")
+    return names
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--before", default=None,
+                        help="an earlier tree's gmax_wgmma.cu, timed beside this tree's "
+                        "resident kernel at the shapes of the kernels line as ms_before")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -4706,6 +4860,8 @@ def main() -> int:
     t = time.perf_counter()
     libs = cuda_build.build()
     log(f"kernel build: {time.perf_counter() - t:.2f} s for {sorted(libs)}")
+    if args.before is not None:
+        EARLIER["scan"] = before_scan(args.before)
 
     # 3 (data first: phase 2 runs on the main path's own plane)
     t = time.perf_counter()
@@ -4839,13 +4995,17 @@ def main() -> int:
     # 20. path N: stage 3's kernel at the benchmark cells' shapes
     kernels["gather_dot"] = {**path_stage3(args.seed, card), "launches": stage3}
 
+    # 21. path O: stage 1 at the 768-d cells' planes
+    resident = path_resident_768(kernels, args.seed, card)
+
     # 14. path H4: the multi-process launchers
     t = time.perf_counter()
     path_multiprocess(card)
     log(f"path H4: {time.perf_counter() - t:.1f} s")
 
     names = ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard", "gmax_l1", "gmax_l1t", "gather_dot",
-             *(f"{name} d={K_DIM}" for name in ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard")))
+             *(f"{name} d={K_DIM}" for name in ("gmax_f_sub", "gmax_f", "gmax_int8", "gmax_jaccard")),
+             *resident)
     for name in names:
         if kernels[name]["launches"] < 1:
             raise AssertionError(f"{name} was never launched through HyperDB")

@@ -42,11 +42,17 @@ to do is keep the tensor cores fed, and the (B, N) score matrix out of
 device memory. Two variants, both hand-written for ``sm_90a``:
 
 - ``wgmma`` (``csrc/gmax_wgmma.cu``, ``gmax_wgmma_kernel``) runs the
-  product as ``wgmma.mma_async`` from shared memory: a block keeps its 128
+  product as ``wgmma.mma_async`` from shared memory: a block keeps its
   queries resident at full depth and streams the corpus through a ring of
   TMA-filled, 128-byte-swizzled tiles handed over by ``mbarrier``s, one
-  persistent block per SM walking a range of corpus groups; each thread
-  reduces its own columns of a group in registers and writes the maxes once.
+  persistent block per SM walking a range of corpus items, cut so that
+  every SM has work at every batch; each thread reduces its own columns of
+  a group in registers and writes the maxes once. Its entry point picks one
+  of two forms by depth: rows of up to 10 boxes of 128 bytes keep a
+  128-query tile over one group at a time; rows of 11 and 12 boxes, whose
+  128-query tile would leave a ring of 2-3 corpus tiles, keep a 64-query
+  tile over 256-row items in clusters of two blocks that share each corpus
+  box by TMA multicast (one block a cluster where the batch is one tile).
 - ``wgmma_stream`` (the same file, ``gmax_stream_kernel``) takes rows too
   deep for a resident query tile (the default 4480-d hybrid embedder's
   plane): query and corpus boxes both stream through the ring, clusters of
@@ -86,8 +92,9 @@ GROUP = 128  # rows per group; the kernel's corpus block
 LAUNCHES = {"gmax_f_sub": 0, "gmax_f": 0, "gmax_int8": 0, "gmax_jaccard": 0}
 LAUNCHES_BY_VARIANT = {"wgmma": 0, "wgmma_stream": 0}
 
-# the wgmma variant keeps a 128-query tile resident at full depth beside a
-# ring of corpus tiles: at most 12 boxes of 128 bytes of depth fit
+# the wgmma variant keeps its query tile resident at full depth beside a ring
+# of corpus tiles: a 128-query tile up to 10 boxes of 128 bytes, a 64-query
+# tile (clusters of two sharing the corpus) at 11 and 12; deeper rows stream
 WGMMA_MAX_ROW_BYTES = 12 * 128
 
 NEG_INF = float("-inf")

@@ -9,11 +9,15 @@ moves scores of magnitude <= 1 by a few f32 ulps (~1e-7 each); -inf positions mu
 products are exact integers and their epilogues are the same sequence of
 IEEE f32 operations, with no multiply-add contracted.
 The stage-1 scans exist in two variants (``wgmma`` with a resident query
-tile, ``wgmma_stream`` for deeper rows), chosen by ``gmax.kernel_variant``:
+tile: 128 queries at rows of 10 boxes of 128 bytes or fewer, 64 in clusters
+of two blocks at 11-12 boxes; ``wgmma_stream`` for deeper rows), chosen by
+``gmax.kernel_variant``:
 the shapes below stress both (ragged query tiles, depths that end inside a
-128-byte box, the deepest resident query tile and one past it, queries
-fewer than a cluster's two tiles, group counts that a 256-row item does not
-divide) and hold each variant to the plain versions.
+128-byte box, 7 to 12 boxes of depth and one past them, batches of one
+query tile (clusters of one block), of an odd tile count (a cluster's second
+block holds no query) and of many tiles, group counts that a 256-row item
+does not divide, the 768-d benchmark cells' two planes) and hold each
+variant to the plain versions.
 ``gmax_l1`` and ``gmax_l1t`` sum d terms |v - q| in f32 in another order
 than torch's ``sum(-1)``: rtol 1e-5 plus atol 1e-4 on distances of
 magnitude ~d; -inf / +inf positions must match exactly.
@@ -608,11 +612,15 @@ def test_metric_routes_keep_the_batch_floor_on_card(dev, monkeypatch, metric, ke
     assert (gi == pi).all() if exact else (gi == pi).mean() > 0.99
 
 
-STRESS_B = [1, 63, 64, 77, 128, 129, 640]
-STRESS_D = [40, 64, 128, 384, 392, 768, 1024]  # 392: a ragged box; 1024: past the resident tile
-STRESS_N = [256, 1024, 4096]
+# batches of one 64-query tile (1, 31, 63, 64), two (65, 77, 128), an odd
+# count (129, 1000) and whole pairs (640, 1024); depths of 1 to 12 boxes
+# (392 and 712 end inside a box) and one past them (1024); group counts odd
+# (384, 1152: a last item of one group) and even
+STRESS_B = [1, 31, 63, 64, 65, 77, 128, 129, 640, 1000, 1024]
+STRESS_D = [40, 64, 128, 384, 392, 448, 640, 712, 768, 1024]
+STRESS_N = [256, 384, 1024, 1152, 4096]
 STRESS = [
-    (b, STRESS_N[(i + j) % 3], d) for i, b in enumerate(STRESS_B) for j, d in enumerate(STRESS_D)
+    (b, STRESS_N[(i + j) % 5], d) for i, b in enumerate(STRESS_B) for j, d in enumerate(STRESS_D)
 ] + [
     # the streaming variant: ragged depths (776 and 1032 end inside a box;
     # 4480 is the default hybrid embedder's width), batches under one
@@ -701,6 +709,32 @@ def test_wgmma_many_items_with_odd_tile_counts(dev):
     _same(gm, want_gm)
 
 
+@pytest.mark.parametrize("n", [1 << 21, 1 << 23])
+def test_float_scan_over_the_cell_planes(dev, n):
+    """The 768-d benchmark cells' two planes at a served flush's batch (b =
+    32: one query tile, so clusters of one block and the corpus cut over
+    every SM), subgroup and group maxes against the plain version; rows and
+    queries drawn and normalised on the card."""
+    b, d = 32, 768
+    g = torch.Generator(device=dev).manual_seed(n)
+    v = torch.randn((n, d), generator=g, device=dev)
+    v = v.div_(v.norm(dim=1, keepdim=True)).bfloat16()
+    q = torch.randn((b, d), generator=g, device=dev)
+    q = q.div_(q.norm(dim=1, keepdim=True)).bfloat16()
+    mask = torch.rand(n, generator=g, device=dev) < 0.9
+    mask[128:256] = False  # one whole group masked
+    extra = G.make_extra(n, mask, torch.rand(n, generator=g, device=dev) * 0.05, device=dev)
+    assert G.kernel_variant(n, d, 2) == "wgmma"
+    before = G.LAUNCHES_BY_VARIANT["wgmma"]
+    gm, sm = G.gmax_f_sub(q, v, extra, sub=32, dual=True)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES_BY_VARIANT["wgmma"] == before + 1
+    want_gm, want_sm = G.gmax_f_sub_plain(q, v, extra, sub=32)
+    _same(sm, want_sm)
+    _same(gm, want_gm)
+    assert torch.isneginf(gm[:, 1]).all()
+
+
 def test_wgmma_refuses_a_depth_past_its_rule(dev):
     """Forced onto a shape it does not take, the wgmma entry point refuses;
     nothing else steps in."""
@@ -717,7 +751,10 @@ def test_wgmma_refuses_a_depth_past_its_rule(dev):
     "b,n,d",
     [(1, 256, 64), (63, 1024, 48), (77, 4096, 128), (129, 1024, 384), (640, 4096, 400),
      (128, 256, 768), (64, 1024, 1536), (129, 256, 1552), (640, 1024, 2048),
-     (77, 384, 4480), (129, 1152, 1664), (640, 640, 2048), (1, 256, 1552)],
+     (77, 384, 4480), (129, 1152, 1664), (640, 640, 2048), (1, 256, 1552),
+     # rows of 7 to 12 boxes (1424 ends inside one) over one tile, two, an
+     # odd count and many
+     (65, 1152, 896), (1000, 384, 1152), (31, 4096, 1424), (1024, 1024, 1536)],
 )
 def test_int8_scan_over_stress_shapes(dev, b, n, d):
     rng = np.random.default_rng(b + d)
@@ -749,7 +786,9 @@ def test_int8_scan_over_stress_shapes(dev, b, n, d):
     "b,n,d", [(1, 256, 64), (63, 1024, 40), (129, 4096, 384), (640, 1024, 392), (77, 256, 768),
               # deep rows on wgmma_stream: at d = 4480 rows of density 1/2 have
               # unions near 3360, past the 2^11 that count_div is exact below
-              (128, 1024, 1024), (64, 384, 2560), (300, 1152, 4480), (129, 256, 4480)],
+              (128, 1024, 1024), (64, 384, 2560), (300, 1152, 4480), (129, 256, 4480),
+              # 10 to 12 boxes on the resident tile (712 ends inside one)
+              (1024, 1152, 768), (65, 384, 640), (31, 4096, 712)],
 )
 def test_jaccard_scan_over_stress_shapes(dev, b, n, d):
     rng = np.random.default_rng(b + d)

@@ -238,9 +238,10 @@ def test_missing_library_file_raises(no_kernel_library, monkeypatch, tmp_path):
 def test_build_flags_and_sources():
     # the four stage-1 scans (gmax_f_sub, gmax_f, gmax_int8, gmax_jaccard) are
     # instantiations of one template in each of the two variants of
-    # gmax_wgmma.cu (wgmma fed by TMA: a resident query tile, and streamed
-    # rows over clusters sharing the corpus by multicast); l1.cu holds the
-    # two manhattan kernels, gather_dot.cu stage 3's rescore
+    # gmax_wgmma.cu (wgmma fed by TMA: a resident query tile of 128, or of
+    # 64 in clusters sharing the corpus by multicast, and streamed rows over
+    # such clusters); l1.cu holds the two manhattan kernels, gather_dot.cu
+    # stage 3's rescore
     assert cuda_build.sources() == ["gather_dot", "gmax_wgmma", "l1"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     # no fast-math: the jaccard division and the NaN scrub must be IEEE
@@ -251,7 +252,9 @@ def test_build_flags_and_sources():
         "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
         "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8", "multicast::cluster",
-        'extern "C" int gmax_scan_wgmma_stream(',
+        'extern "C" int gmax_scan_wgmma_stream(', 'extern "C" int gmax_scan_wgmma(',
+        # the resident kernel's cluster launch, of one or two blocks
+        "%%cluster_nctarank", "attr[0].val.clusterDim.x = ctas;",
         "cp.async.bulk.tensor", "mbarrier", "setmaxnreg", "const __grid_constant__ CUtensorMap",
         "cuTensorMapEncodeTiled", "__fmul_rn", "__fdiv_rn", "KIND_JACCARD",
         "hyperdb_tpu/ops/pallas_gmax.py", "Bound on the H100: operations",
